@@ -1,0 +1,61 @@
+"""The torch port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
+one: a CUDA kernel has no CPU mode, and the plain versions are held to
+abcnet_tpu on the CPU by tests/test_torch_unpack.py and
+tests/test_torch_peaks.py. The file imports no JAX, so on the GPU
+machine (which has none) it runs with
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerance: bit-equality, scores and every index slot included.
+"""
+
+import pytest
+import torch
+
+from abcnet_tpu_torch.ops.peaks import nms_topk, nms_topk_plain
+from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
+from torch_parity import NMS_CASES, cuda, packed_bits  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "ones"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unpack_kernel_matches_plain(cuda, kind, dtype):
+    bits = torch.from_numpy(packed_bits(kind, 8)).to(cuda)
+    before = unpack_bits.launches
+    got = unpack_bits(bits, dtype)
+    torch.cuda.synchronize()
+    assert unpack_bits.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (8, 512, 512)
+    assert torch.equal(got, unpack_bits_plain(bits, dtype))
+
+
+def test_unpack_kernel_rejects_strided_input(cuda):
+    bits = torch.zeros(2, 64, 512, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        unpack_bits(bits.transpose(1, 2))
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_kernel_matches_plain(cuda, case, dtype):
+    make, k, thr = NMS_CASES[case]
+    m = torch.from_numpy(make()).to(cuda, dtype)
+    before = nms_topk.launches
+    s, i = nms_topk(m, k, thr)
+    torch.cuda.synchronize()
+    assert nms_topk.launches == before + 1
+    ps, pi = nms_topk_plain(m, k, thr)
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+
+
+def test_nms_kernel_all_survivors_at_full_grid(cuda):
+    """A flat 128x128 map: all 16,384 cells survive and are sorted."""
+    m = torch.full((3, 128, 128), 0.5, device=cuda)
+    s, i = nms_topk(m, 160, -1.0)
+    ps, pi = nms_topk_plain(m, 160, -1.0)
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+    assert i[0].tolist() == list(range(160))

@@ -1,0 +1,129 @@
+"""Shared helpers of the torch-port parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages; JAX
+stays on the CPU (tests/conftest.py) and data crosses as numpy arrays.
+"""
+
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SNAPSHOT = os.path.join(REPO, "snapshots", "r5_latest.npz")
+FIXTURE = os.path.join(REPO, "abcnet_tpu_torch", "assets",
+                       "smoke_step43100.npz")
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; skips where there is none (the kernels have no
+    CPU mode, their plain versions are tested on the CPU instead)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def flax_variables(source="snapshot", size=128):
+    """(params, batch_stats) numpy f32 trees of the production UNet:
+    the committed snapshot, or a random Flax init from seed `source`."""
+    import jax
+    import jax.numpy as jnp
+
+    from abcnet_tpu.models.unet import UNet, init_unet
+
+    ref = init_unet(jax.random.PRNGKey(0 if source == "snapshot" else source),
+                    UNet(dtype=jnp.float32), (1, size, size, 1))
+    ref = jax.tree_util.tree_map(np.asarray, ref)
+    if source != "snapshot":
+        return ref["params"], ref["batch_stats"]
+    from abcnet_tpu_torch.models.weights import _unflatten
+    z = np.load(SNAPSHOT)
+    tree = _unflatten({k: z[k] for k in z.files if k != "__step__"})
+    like = lambda s, r: np.asarray(s, np.float32).reshape(r.shape)  # noqa: E731
+    return (jax.tree_util.tree_map(like, tree["params"], ref["params"]),
+            jax.tree_util.tree_map(like, tree["batch_stats"],
+                                   ref["batch_stats"]))
+
+
+def torch_model(params, stats, dtype=torch.float32):
+    from abcnet_tpu_torch.models import UNet, from_flax
+    model = UNet(dtype=dtype)
+    model.load_state_dict(from_flax(params, stats))
+    return model.eval()
+
+
+def jax_state(params, stats):
+    """The fields of a TrainState that the JAX serving pipeline reads."""
+    import jax.numpy as jnp
+
+    from abcnet_tpu.models.unet import UNet
+    return types.SimpleNamespace(apply_fn=UNet(dtype=jnp.float32).apply,
+                                 params=params, batch_stats=stats)
+
+
+def ink_images(b, size, seed):
+    """{0, 1} float32 NHWC masks: ~6% ink, like rendered drawings."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((b, size, size, 1)) < 0.06).astype(np.float32)
+
+
+def packed_bits(kind, b=2):
+    """(b, 512, 64) packed rows: random bytes, all zero or all 0xFF."""
+    if kind == "random":
+        rng = np.random.default_rng(0)
+        return rng.integers(0, 256, (b, 512, 64), dtype=np.uint8)
+    return np.full((b, 512, 64), 0 if kind == "zeros" else 0xFF, np.uint8)
+
+
+def plateau_map():
+    m = np.full((1, 32, 32), -5.0, np.float32)
+    m[0, 4:6, 4:6] = 2.0            # plateau: all four survive
+    m[0, 20, 20] = -1.0             # exactly threshold: dropped
+    m[0, 10, 25] = 7.0              # isolated peak
+    return m
+
+
+def edge_map():
+    m = np.zeros((1, 32, 32), np.float32)
+    m[0, 0, 0], m[0, 0, 31], m[0, 31, 31] = 3.0, 4.0, 5.0
+    return m
+
+
+def random_maps(shape):
+    return np.random.default_rng(0).normal(size=shape).astype(np.float32) * 3
+
+
+# NMS/top-K cases, those of tests/test_pallas_peaks.py plus exhausted and
+# all-survivor maps: name -> (make maps, k, threshold).
+NMS_CASES = {
+    "random_small": (lambda: random_maps((3, 32, 32)), 16, -1.0),
+    "random_full": (lambda: random_maps((2, 128, 128)), 128, -1.0),
+    "plateau_threshold": (plateau_map, 8, -1.0),
+    "edges": (edge_map, 4, 0.5),
+    "exhausted": (lambda: np.full((2, 16, 16), -3.0, np.float32), 12, -1.0),
+    "constant": (lambda: np.zeros((1, 16, 16), np.float32), 40, -1.0),
+}
+
+
+def to_np(d):
+    return {k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in d.items()}
+
+
+def assert_peaks_equal(want, got, atol=1e-5):
+    """Same keys, shapes and dtypes; ints and bools equal; floats within
+    `atol` (f32 reassociation between XLA and PyTorch)."""
+    want, got = to_np(want), to_np(got)
+    assert sorted(want) == sorted(got)
+    for k in want:
+        assert want[k].shape == got[k].shape, k
+        assert want[k].dtype == got[k].dtype, (k, want[k].dtype,
+                                               got[k].dtype)
+        if np.issubdtype(want[k].dtype, np.floating):
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
