@@ -1,5 +1,9 @@
-"""Command-line surface of the port: img2smiles and cal-acc.
+"""Command-line surface of the port: train, img2smiles and cal-acc.
 
+    python -m abcnet_tpu_torch train --data DIR [-b 64] [--lr 2.5e-4]
+        [--epochs 30] [--amount 0.2] [--seed 0] [--ckpt DIR]
+        [--dtype bfloat16] [--no-test-split] [--resume DIR]
+        [--device cuda]
     python -m abcnet_tpu_torch img2smiles --data DIR_OR_CSV [--ckpt NPZ]
         [--out results.csv] [-b 64] [--processes 0] [--threshold 0.6]
         [--dtype bfloat16] [--device cuda]
@@ -7,8 +11,10 @@
 
 The flags are those of abcnet_tpu's CLI (abcnet_tpu/__main__.py:289-308)
 plus --device; --ckpt names a weight snapshot (.npz, default
-snapshots/r5_latest.npz). Multi-device serving (--mesh) is not ported
-yet.
+snapshots/r5_latest.npz). `train --data DIR` reads DIR/dataset.csv (the
+format the JAX package's `gen` writes); training without --data needs
+the molecule generator, which is not ported yet. Multi-device serving
+(--mesh) is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,6 +72,45 @@ def img2smiles_loop(run, images: Sequence[np.ndarray], batch_size: int,
     return preds
 
 
+def _cmd_train(args) -> None:
+    import random
+
+    from .data import pipeline
+    from .train.trainer import (TrainConfig, create_state, fit,
+                                restore_checkpoint)
+    from .utils.device import resolve_device
+
+    resolve_device(args.device)
+    if not args.data:
+        raise NotImplementedError(
+            "train without --data generates molecules on the fly "
+            f"(--synthetic {args.synthetic}); the generator stack "
+            "(data/generate.py, layout, render, raster canvas, "
+            "chem/random_mol.py) is not ported yet: pass --data DIR with a "
+            "dataset written by `python -m abcnet_tpu gen`")
+    csv_path = os.path.join(args.data, "dataset.csv")
+    if not os.path.exists(csv_path):
+        sys.exit(f"error: dataset csv not found: {csv_path}")
+    cfg = TrainConfig(batch_size=args.batch_size, lr=args.lr,
+                      epochs=args.epochs, amount=args.amount,
+                      seed=args.seed, ckpt_dir=args.ckpt, dtype=args.dtype,
+                      device=args.device)
+    state = None
+    if args.resume:
+        state = restore_checkpoint(create_state(cfg), args.resume)
+        print(f"resumed from step {state.step}")
+    samples = pipeline.load_csv_dataset(csv_path)
+    n_test = max(len(samples) // 90, 1) if args.test_split else 0
+    rng = random.Random(args.seed)
+    # Eval split: fixed un-augmented examples; the train split stays raw
+    # Samples so fit() re-augments every epoch (utils.py:47-61 role).
+    test = [pipeline.sample_to_example(s, rng, train=False)
+            for s in samples[:n_test]] if n_test else None
+    train = samples[n_test:]
+    print(f"training on {len(train)} samples, eval on {n_test}", flush=True)
+    fit(cfg, train, test, state=state)
+
+
 def _cmd_img2smiles(args) -> None:
     import torch
 
@@ -107,6 +152,29 @@ def _cmd_cal_acc(args) -> None:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="abcnet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train the U-Net")
+    t.add_argument("--data", help="dataset dir (dataset.csv inside)")
+    t.add_argument("--synthetic", type=int, default=2000,
+                   help="#examples to generate when --data is omitted "
+                        "(needs the generator stack: not ported yet)")
+    t.add_argument("-b", "--batch-size", type=int, default=64)
+    t.add_argument("--lr", type=float, default=2.5e-4)
+    t.add_argument("--epochs", type=int, default=30)
+    t.add_argument("--amount", type=float, default=0.2)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--ckpt", help="checkpoint dir")
+    t.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    t.add_argument("--test-split", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="hold out 1/90 for eval (--no-test-split to "
+                        "train on everything; reference split "
+                        "train.py:19-21)")
+    t.add_argument("--resume", help="checkpoint dir to resume from")
+    t.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    t.set_defaults(fn=_cmd_train)
 
     i = sub.add_parser("img2smiles", help="decode a dataset to SMILES")
     i.add_argument("--data", required=True,

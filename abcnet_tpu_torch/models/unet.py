@@ -16,11 +16,19 @@ Precision follows the JAX module's `dtype`: parameters stay f32 master
 weights, each conv casts its input and weights to `dtype` (bf16 in
 production), BatchNorm runs in f32 and its output is cast back after
 the activation. Heads stay in `dtype`. No autocast.
+
+Train mode (`model.train()`) follows Flax, not torch's defaults, in two
+places. BatchNorm normalizes with the batch statistics and moves its
+running variance with the *biased* batch variance (torch's own update
+uses the unbiased one). Dropout in the heads draws its keep mask from
+the `generator` handed to `forward`, after the cast to the compute
+dtype, so a training run is reproducible from its generator and never
+touches the global CUDA stream.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,6 +41,38 @@ HEAD_NAMES = ("atom_target", "atom_type", "atom_charge", "atom_hs",
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1        # flax momentum 0.9 (the weight of the old value)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """f32 batch norm with Flax's running-statistics update.
+
+    Eval: normalizes with the running statistics, as nn.BatchNorm2d.
+    Train: normalizes with the batch statistics and updates
+
+        running = 0.9 * running + 0.1 * batch
+
+    with the biased batch variance, as flax.linen.BatchNorm(momentum=0.9)
+    does (abcnet_tpu/models/unet.py:45-46). torch's own update would use
+    the unbiased variance, n/(n-1) larger. F.batch_norm is therefore
+    given zeroed scratch buffers and momentum 1, which leaves the batch
+    mean and the unbiased batch variance in them without another pass
+    over the activation; the variance is scaled back by (n-1)/n."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(
+                var, alpha=self.momentum * (n - 1) / n)
+        return out
 
 
 def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
@@ -51,9 +91,9 @@ class DoubleConv(nn.Module):
         super().__init__()
         pad = kernel // 2
         self.conv0 = nn.Conv2d(in_features, features, kernel, padding=pad)
-        self.bn0 = nn.BatchNorm2d(features, BN_EPS, BN_MOMENTUM)
+        self.bn0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
         self.conv1 = nn.Conv2d(features, features, kernel, padding=pad)
-        self.bn1 = nn.BatchNorm2d(features, BN_EPS, BN_MOMENTUM)
+        self.bn1 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
@@ -106,19 +146,28 @@ class Up(nn.Module):
 
 class OutConv(nn.Module):
     """Conv3x3 -> BN -> LeakyReLU -> Dropout(0.2) -> Conv1x1
-    (unet.py:63-74). Dropout is the identity in eval."""
+    (unet.py:63-74). Dropout is the identity in eval; in train mode the
+    keep mask (p = 0.8, survivors scaled by 1/0.8) is drawn from
+    `generator` (the device's default generator if None)."""
+
+    DROP = 0.2
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.conv0 = nn.Conv2d(in_features, in_features, 3, padding=1)
-        self.bn0 = nn.BatchNorm2d(in_features, BN_EPS, BN_MOMENTUM)
-        self.dropout = nn.Dropout(0.2)
+        self.bn0 = BatchNorm(in_features, BN_EPS, BN_MOMENTUM)
         self.conv1 = nn.Conv2d(in_features, out_features, 1)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = self.bn0(_conv(self.conv0, x, dtype).float())
         x = F.leaky_relu(x, 0.01).to(dtype)
-        return _conv(self.conv1, self.dropout(x), dtype)
+        if self.training:
+            keep = torch.empty_like(x).bernoulli_(1 - self.DROP,
+                                                  generator=generator)
+            x = x * keep.mul_(1.0 / (1 - self.DROP))   # 0 or 1.25, exact
+        return _conv(self.conv1, x, dtype)
 
 
 class UNet(nn.Module):
@@ -157,11 +206,13 @@ class UNet(nn.Module):
         return getattr(self, f"out_{name}")
 
     def forward(self, x: torch.Tensor, dense_heads: Sequence[str] = None,
-                return_features: bool = False):
+                return_features: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x: NHWC (B, H, W, 1). dense_heads: if given, only these heads
         are computed. return_features additionally returns the shared
         NHWC (B, H/4, W/4, 128) trunk features, so callers can evaluate
-        the other heads only at peak cells (infer/decode.py)."""
+        the other heads only at peak cells (infer/decode.py). generator:
+        the source of the heads' dropout masks in train mode."""
         dt = self.dtype
         x = x.permute(0, 3, 1, 2).to(dt)
         x1 = self.inc2(self.inc1(x, dt), dt)
@@ -179,7 +230,7 @@ class UNet(nn.Module):
         for name in self.head_names:
             if dense_heads is not None and name not in dense_heads:
                 continue
-            out[name] = self.head(name)(y, dt).permute(0, 2, 3, 1)
+            out[name] = self.head(name)(y, dt, generator).permute(0, 2, 3, 1)
         if return_features:
             return out, y.permute(0, 2, 3, 1)
         return out

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of the abcnet_tpu_torch serving path (img2smiles) on one GPU.
+"""Smoke run of abcnet_tpu_torch on one GPU: serving (img2smiles) and
+training (fit).
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-Drives the port's main path — bit pack, unpack kernel, production U-Net
+Drives the port's serving path — bit pack, unpack kernel, production U-Net
 on the step-43100 snapshot, NMS/top-K kernel, sparse heads, packed
 transport, host assembly, scoring — on the 64-molecule fixture
 abcnet_tpu_torch/assets/smoke_step43100.npz, and prints one JSON line
@@ -28,7 +29,21 @@ per phase:
      the serving loop's img/s at batch 64 on fresh input, and a
      torch.profiler trace of the loop (device busy share, device time
      per operator);
-  6. the kernels line, then the card line of nvidia-smi, then the result.
+  6. training (fixture abcnet_tpu_torch/assets/train_step43100.npz: the
+     label strings of the same 64 molecules and the JAX package's f32
+     eval losses on the first 16):
+     - train_f32: `eval_step` in f32 (TF32 off) on the snapshot weights
+       against the JAX losses, per term, relative 1e-3;
+     - train_bf16: the production setting (bf16, batch 64, full width)
+       from a seeded random init, TRAIN_STEPS steps through `fit` on the
+       raw samples (geometric augment, collate, prefetch, noise kernel,
+       targets, forward, losses, backward, Adam, the sampled metrics
+       step, one evaluation), launch counts set to 0 before and read
+       after; then the weights go through save_snapshot/load_snapshot
+       and the serving pipeline decodes the fixture with them;
+     - train_times: CUDA-event times per stage of one step, img/s of
+       the fit loop, peak memory, a torch.profiler operator table;
+  7. the card line of nvidia-smi, then the kernels line, then the result.
 
 Exits non-zero on any failed phase, and without a result when there is
 no CUDA device or no abcnet_tpu_torch package beside the script.
@@ -46,6 +61,16 @@ REPS = 25
 SLEEP_CYCLES = 4_000_000          # ~2 ms at H100 clocks, hides the launch
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM (data sheet)
 F32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
+# The same data sheet rate is used for the noise kernel's integer work: the
+# sheet has no int32 entry. The SM's integer rate is lower than its fp32
+# rate, so the true floor lies above this bound.
+# Operations per packed byte in csrc/noise.cu: 4 Philox calls of 10 rounds
+# (4 multiplies + 4 xors each) and 9 key bumps (2 adds), then per pixel
+# about 13 (bit extract, two shift-convert-scale-compare, or, and).
+NOISE_OPS_PER_BYTE = 4 * (10 * 8 + 9 * 2) + 8 * 13
+TRAIN_STEPS = 30                  # steps of the train_bf16 phase
+TRAIN_LOSS_FRACTION = 0.5         # gate: last total < this x first total
+EVAL_REL_TOL = 1e-3               # train_f32: per loss term against JAX
 
 
 def emit(phase, **kw):
@@ -142,6 +167,70 @@ def check_nms(torch, maps, k, thr):
     return err, int(finite.sum()), bool(torch.equal(i, pi))
 
 
+def check_noise(torch, bit_sets, dev):
+    """The noise kernel against its plain version, bit-equal, and against
+    what it must do: rates 0 are the pure unpack; the realized salt and
+    pepper fractions of each image lie within 6 binomial standard
+    deviations (+ 1e-6) of its rates; the same (rates, seed) gives the
+    same mask; images of one batch get different noise. Returns (cases,
+    max abs difference from the plain version)."""
+    from abcnet_tpu_torch.data.pipeline import draw_noise_rates
+    from abcnet_tpu_torch.ops.noise import unpack_noise, unpack_noise_plain
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases, err = [], 0.0
+    for name, bits_np in bit_sets.items():
+        bits = torch.from_numpy(bits_np).to(dev)
+        b = bits.shape[0]
+        ink = unpack_bits(bits, torch.float32) > 0
+        rates = draw_noise_rates(b, 0.2, dev, gen)
+        for dt in (torch.bfloat16, torch.float32):
+            for seed in (0, 43100, 2 ** 63 - 2):
+                got = unpack_noise(bits, rates, seed, dt)
+                want = unpack_noise_plain(bits, rates, seed, dt)
+                err = max(err, float((got.float() - want.float()).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"unpack_noise {name} {dt} seed "
+                                         f"{seed}: differs from plain")
+                if not torch.equal(got, unpack_noise(bits, rates, seed, dt)):
+                    raise AssertionError("unpack_noise: not repeatable")
+                cases.append(f"{name}/{str(dt)[6:]}/seed={seed}")
+            zero = unpack_noise(bits, torch.zeros_like(rates), 7, dt)
+            if not torch.equal(zero, unpack_bits(bits, dt)):
+                raise AssertionError(f"unpack_noise {name} {dt}: rates 0 "
+                                     "differ from unpack_bits")
+        # Realized rates. Pepper alone (salt 0) erases ink at rate p; salt
+        # alone (pepper 0) inks white pixels at rate s.
+        zeros = torch.zeros(b, device=dev)
+        pep = unpack_noise(bits, torch.stack([zeros, rates[:, 1]], 1), 11,
+                           torch.float32) > 0
+        salt = unpack_noise(bits, torch.stack([rates[:, 0], zeros], 1), 11,
+                            torch.float32) > 0
+        n_ink = ink.sum((1, 2)).double()
+        n_white = (~ink).sum((1, 2)).double()
+        worst = 0.0
+        for want, n, hits in (
+                (rates[:, 1].double(), n_ink, (ink & ~pep).sum((1, 2))),
+                (rates[:, 0].double(), n_white, (salt & ~ink).sum((1, 2)))):
+            n = n.clamp(min=1)
+            tol = 6 * torch.sqrt(want * (1 - want) / n) + 1e-6
+            dev_sigma = ((hits.double() / n - want).abs() / tol).max()
+            worst = max(worst, float(dev_sigma))
+        if worst > 1.0:
+            raise AssertionError(f"unpack_noise {name}: realized rates off "
+                                 f"by {worst:.2f} x the 6-sigma tolerance")
+        full = unpack_noise(bits[:1].expand(2, -1, -1).contiguous(),
+                            rates[:1].expand(2, -1).contiguous(), 3,
+                            torch.float32)
+        if torch.equal(full[0], full[1]):
+            raise AssertionError("unpack_noise: two images of a batch got "
+                                 "the same noise")
+        cases.append(f"{name}/rates within {worst:.2f} of the 6-sigma "
+                     "tolerance")
+    return cases, err
+
+
 def phase_kernels(torch, fixture):
     import numpy as np
 
@@ -165,6 +254,8 @@ def phase_kernels(torch, fixture):
                              float((got.float() - want.float()).abs().max()))
             unpack_cases.append(f"{name}/{str(dt)[6:]}")
 
+    noise_cases, noise_err = check_noise(torch, bit_sets, dev)
+
     nms_err, nms_cases = 0.0, []
     for name, maps, thr in _peak_cases(torch):
         for dt in (torch.float32, torch.bfloat16):
@@ -177,9 +268,11 @@ def phase_kernels(torch, fixture):
                                   "all_indices_equal": all_idx})
     torch.cuda.synchronize()
     emit("kernels_vs_plain", ok=True, unpack_cases=unpack_cases,
-         unpack_max_abs_err=unpack_err, nms_cases=nms_cases,
+         unpack_max_abs_err=unpack_err, noise_cases=noise_cases,
+         noise_max_abs_err=noise_err, nms_cases=nms_cases,
          nms_max_abs_err=nms_err)
-    return {"unpack_bits": unpack_err, "nms_topk": nms_err}
+    return {"unpack_bits": unpack_err, "unpack_noise": noise_err,
+            "nms_topk": nms_err}
 
 
 def serve(torch, fixture, dtype, images=None):
@@ -301,7 +394,8 @@ def phase_times(torch, fixture, model, run, launches, errs):
     import numpy as np
 
     from abcnet_tpu_torch.__main__ import img2smiles_loop
-    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.data.pipeline import draw_noise_rates, pack_images
+    from abcnet_tpu_torch.ops.noise import unpack_noise, unpack_noise_plain
     from abcnet_tpu_torch.ops.peaks import nms_topk, nms_topk_plain
     from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
 
@@ -326,12 +420,26 @@ def phase_times(torch, fixture, model, run, launches, errs):
     unpack_bytes = bits.numel() + bits.numel() * 8 * el
     nms_bytes = (a_map.numel() + b_map.numel()) * el + BATCH * (128 + 160) * 8
     nms_ops = (a_map.numel() + b_map.numel()) * 9     # 3x3 compares
+    # The training shapes: the same packed batch, one rate pair per image
+    # (amount 0.2, as fit draws them), the seed in device memory.
+    rates = draw_noise_rates(BATCH, 0.2, bits.device,
+                             torch.Generator(device="cuda").manual_seed(1))
+    seed = torch.tensor([43100], dtype=torch.int64, device="cuda")
+    noise_bytes = unpack_bytes + rates.numel() * 4 + 8
+    noise_ops = bits.numel() * NOISE_OPS_PER_BYTE
     rows = [
         ("unpack_bits", "abcnet_tpu_torch/csrc/unpack.cu",
          "abcnet_tpu/ops/pallas_input.py:59",
          lambda: unpack_bits(bits, dt), lambda: unpack_bits_plain(bits, dt),
          unpack_bytes, bits.numel() * 8,
          f"({BATCH},512,64) u8 -> ({BATCH},512,512) {str(dt)[6:]}"),
+        ("unpack_noise", "abcnet_tpu_torch/csrc/noise.cu",
+         "abcnet_tpu/ops/pallas_input.py:63",
+         lambda: unpack_noise(bits, rates, seed, dt),
+         lambda: unpack_noise_plain(bits, rates, seed, dt),
+         noise_bytes, noise_ops,
+         f"({BATCH},512,64) u8 + ({BATCH},2) f32 rates -> ({BATCH},512,512) "
+         f"{str(dt)[6:]}; launches counted over the train_bf16 phase"),
         ("nms_topk", "abcnet_tpu_torch/csrc/nms_topk.cu",
          "abcnet_tpu/ops/pallas_peaks.py:78",
          both(nms_topk), both(nms_topk_plain), nms_bytes, nms_ops,
@@ -375,11 +483,34 @@ def phase_times(torch, fixture, model, run, launches, errs):
     return kernels
 
 
+def trace_summary(prof, n):
+    """(device busy microseconds = the union of the kernel spans, device
+    milliseconds per operator and per one of `n` batches or steps, largest
+    first) of a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, None
+    for s, e in spans:                       # length of the union
+        if end is None or s > end:
+            busy_us += e - s
+            end = e
+        elif e > end:
+            busy_us += e - end
+            end = e
+    ops = sorted(((a.key, a.self_device_time_total / 1e3 / n)
+                  for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU
+                  and a.self_device_time_total > 0),
+                 key=lambda kv: -kv[1])
+    return busy_us, ops
+
+
 def trace_serving(torch, run, images):
     """torch.profiler trace of the serving loop (a run separate from the
     timed one): the share of the wall time in which some kernel ran on
     the card, and device time per operator, per batch."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from abcnet_tpu_torch.__main__ import img2smiles_loop
@@ -391,27 +522,274 @@ def trace_serving(torch, run, images):
         img2smiles_loop(run, images, BATCH, log_every=0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, None
-    for s, e in spans:                       # length of the union
-        if end is None or s > end:
-            busy_us += e - s
-            end = e
-        elif e > end:
-            busy_us += e - end
-            end = e
-    ops = sorted(((a.key, a.self_device_time_total / 1e3 / n_batches)
-                  for a in prof.key_averages()
-                  if a.device_type == DeviceType.CPU
-                  and a.self_device_time_total > 0),
-                 key=lambda kv: -kv[1])
+    busy_us, ops = trace_summary(prof, n_batches)
     emit("serving_trace", ok=True, batches=n_batches,
-         device_busy_share=busy_us / wall_us if spans else None,
+         device_busy_share=busy_us / wall_us if busy_us else None,
          device_ms_per_batch=busy_us / 1e3 / n_batches,
          top_ops_device_ms_per_batch=dict(ops[:12]),
          note="trace of a separate loop run; busy = union of kernel spans "
               "over the loop's wall time")
+
+# ---------------------------------------------------------------------------
+# Training phases
+# ---------------------------------------------------------------------------
+
+def fixture_samples(fixture, labels):
+    """The 64 fixture molecules as raw Samples (drawing + label strings)."""
+    import hashlib
+
+    from abcnet_tpu_torch.data.pipeline import Sample
+
+    digest = hashlib.sha256(fixture["images"].tobytes()).hexdigest()
+    if digest != str(labels["images_sha256"]):
+        raise AssertionError("the training fixture's labels belong to other "
+                             "drawings than the serving fixture holds")
+    return [Sample(img, str(a), str(b), str(smi)) for img, a, b, smi in
+            zip(fixture["images"], labels["atoms_string"],
+                labels["bonds_string"], labels["smiles"])]
+
+
+def phase_train_f32(torch, samples, labels):
+    """eval_step in f32 (TF32 off) on the snapshot weights, rows 0-15,
+    against the JAX package's f32 CPU losses for the same batch."""
+    import random
+
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.models.weights import load_snapshot
+    from abcnet_tpu_torch.train import trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.float32)
+    state = trainer.create_state(trainer.TrainConfig(dtype="float32"), model)
+    rng = random.Random(0)
+    rows = labels["eval_rows"].tolist()
+    batch = trainer.to_device(pipeline.collate(
+        [pipeline.sample_to_example(samples[i], rng, train=False)
+         for i in rows]), "cuda")
+    total, losses, metrics = trainer.eval_step(state, batch)
+    want = dict(zip(labels["eval_loss_names"].tolist(),
+                    labels["eval_losses"].tolist()))
+    want["total"] = float(labels["eval_total"])
+    got = {k: float(v) for k, v in losses.items()}
+    got["total"] = float(total)
+    # relative, with an absolute floor of 1e-7 for a term that is 0 (no
+    # atom of these rows carries an hs label)
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-7 / EVAL_REL_TOL)
+           for k in want}
+    ok = all(v <= EVAL_REL_TOL for v in rel.values()) and \
+        all(bool(torch.isfinite(n)) for n, _ in metrics.values())
+    emit("train_f32", ok=ok, rows=len(rows), port=got, jax_f32_cpu=want,
+         rel_err=rel, gate=f"rel_err <= {EVAL_REL_TOL} per term",
+         n_metrics=len(metrics))
+    if not ok:
+        raise AssertionError("f32 eval_step disagrees with the JAX losses")
+
+
+def phase_train_bf16(torch, fixture, samples):
+    """The production training setting through fit's loop, then the
+    weights through the snapshot layout into the serving pipeline."""
+    import random
+    import tempfile
+
+    from abcnet_tpu_torch.__main__ import img2smiles_loop
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models.weights import load_snapshot, save_snapshot
+    from abcnet_tpu_torch.ops.noise import unpack_noise
+    from abcnet_tpu_torch.ops.peaks import nms_topk
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+    from abcnet_tpu_torch.train import trainer
+
+    cfg = trainer.TrainConfig(batch_size=BATCH, epochs=TRAIN_STEPS,
+                              eval_every=TRAIN_STEPS, seed=0)
+    rng = random.Random(0)
+    test = [pipeline.sample_to_example(s, rng, train=False)
+            for s in samples[:cfg.eval_batch_size]]
+    state = trainer.create_state(cfg)
+    bn = state.model.inc1.bn0
+    bn_before = (bn.running_mean.clone(), bn.running_var.clone())
+
+    # fit calls the module's train_step and train_metrics_step; wrap them
+    # to keep each step's losses (device tensors, read after the loop) and
+    # to count the forward passes that take noisy input.
+    totals, terms, noisy = [], [], [0]
+    step_fn, metrics_fn = trainer.train_step, trainer.train_metrics_step
+
+    def recording_step(*a, **kw):
+        out = step_fn(*a, **kw)
+        totals.append(out[1])
+        terms.append(out[2])
+        noisy[0] += 1
+        return out
+
+    def counting_metrics(*a, **kw):
+        noisy[0] += 1
+        return metrics_fn(*a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (unpack_noise, unpack_bits, nms_topk):
+        fn.launches = 0
+    trainer.train_step, trainer.train_metrics_step = \
+        recording_step, counting_metrics
+    t0 = time.perf_counter()
+    try:
+        state = trainer.fit(cfg, samples, test, state=state, verbose=False)
+    finally:
+        trainer.train_step, trainer.train_metrics_step = step_fn, metrics_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"unpack_noise": unpack_noise.launches,
+                "unpack_bits": unpack_bits.launches,
+                "nms_topk": nms_topk.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    total_list = [float(t) for t in totals]
+    finite = all(bool(torch.isfinite(v)) for d in terms for v in d.values()) \
+        and all(t == t and abs(t) != float("inf") for t in total_list)
+    bn_moved = not torch.equal(bn.running_mean, bn_before[0]) and \
+        not torch.equal(bn.running_var, bn_before[1])
+    fell = total_list[-1] < TRAIN_LOSS_FRACTION * total_list[0]
+    ok = (finite and bn_moved and fell and state.step == TRAIN_STEPS
+          and launches["unpack_noise"] == noisy[0]
+          and launches["unpack_bits"] == 1 and launches["nms_topk"] == 0)
+
+    # Weights through the npz snapshot layout into the serving pipeline.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_snapshot(state.model, os.path.join(tmp, "smoke.npz"),
+                             step=state.step)
+        served, step = load_snapshot(path, "cuda", torch.bfloat16)
+    same = all(torch.equal(v, served.state_dict()[k])
+               for k, v in state.model.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+    preds = img2smiles_loop(make_infer_pipeline(served, "cuda"),
+                            list(fixture["images"]), BATCH, log_every=0)
+    ok = ok and same and step == TRAIN_STEPS and len(preds) == BATCH
+    emit("train_bf16", ok=ok, batch=BATCH, steps=state.step,
+         params=sum(p.numel() for p in state.model.parameters()),
+         total_first=total_list[0], total_last=total_list[-1],
+         totals=total_list, gate=f"finite; last < {TRAIN_LOSS_FRACTION} x "
+         "first; BN running stats moved; unpack_noise launches == noisy "
+         "forward passes; unpack_bits launches == 1 (the evaluation)",
+         all_finite=finite, bn_running_stats_moved=bn_moved,
+         noisy_forward_passes=noisy[0], launches=launches,
+         last_terms={k: float(v) for k, v in terms[-1].items()},
+         wall_s=wall, img_per_s_incl_warmup=TRAIN_STEPS * BATCH / wall,
+         peak_mem_gib=peak_gib, snapshot_roundtrip_equal=same,
+         served_decoded=sum(p is not None for p in preds))
+    if not ok:
+        raise AssertionError("bf16 training below its gates")
+    return state, cfg, launches
+
+
+def train_stage_breakdown(torch, state, batch, reps=5):
+    """Device time per stage of one training step at batch 64 (CUDA
+    events between the stages of trainer.train_step, launched as it
+    launches them), median of `reps`; and of the sampled metrics step."""
+    import numpy as np
+
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.ops import losses as L
+    from abcnet_tpu_torch.ops.targets import build_targets
+    from abcnet_tpu_torch.train import trainer
+
+    model, opt = state.model, state.optimizer
+    names = ("input_kernel", "targets", "forward", "losses", "backward",
+             "adam")
+    res = {n: [] for n in names}
+    res["step"], res["metrics_step"] = [], []
+    for rep in range(reps + 1):
+        gen = torch.Generator(device="cuda").manual_seed(rep)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        torch.cuda.synchronize()
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        images = pipeline.device_unpack_bits(
+            batch["image_bits"], train=True, dtype=model.dtype, amount=0.2,
+            generator=gen)
+        ev[1].record()
+        targets = build_targets(batch, with_full_type=False)
+        ev[2].record()
+        model.train()
+        preds = model(images, generator=gen)
+        ev[3].record()
+        total = L.total_loss(L.compute_losses(preds, targets, batch), model.s)
+        ev[4].record()
+        total.backward()
+        ev[5].record()
+        opt.step()
+        ev[6].record()
+        del images, targets, preds, total
+        trainer.train_metrics_step(state, batch, rep)
+        ev[7].record()
+        torch.cuda.synchronize()
+        if rep == 0:
+            continue                       # warm-up
+        for j, n in enumerate(names):
+            res[n].append(ev[j].elapsed_time(ev[j + 1]))
+        res["step"].append(ev[0].elapsed_time(ev[6]))
+        res["metrics_step"].append(ev[6].elapsed_time(ev[7]))
+    return {n: float(np.median(v)) for n, v in res.items()}
+
+
+def phase_train_times(torch, samples, state, cfg, kernels):
+    import random
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.ops.noise import unpack_noise
+    from abcnet_tpu_torch.train import trainer
+
+    rng = random.Random(1)
+    batch = trainer.to_device(pipeline.collate(
+        [pipeline.sample_to_example(s, rng, train=True) for s in samples]),
+        "cuda")
+    stages = train_stage_breakdown(torch, state, batch)
+
+    # The fit loop with its host feed (augment, collate, prefetch thread,
+    # pinned copies), warm: 10 more steps of the same state.
+    more = 10
+    cfg.epochs = state.step + more
+    cfg.eval_every = 10 ** 9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    unpack_noise.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(cfg, samples, None, state=state, verbose=False)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = unpack_noise.launches / more
+
+    n_trace = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_trace):
+            trainer.train_step(state, batch, i, with_metrics=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, ops = trace_summary(prof, n_trace)
+    noise = next(k for k in kernels if k["name"] == "unpack_noise")
+    emit("train_times", ok=True, batch=BATCH, stages_ms=stages,
+         fit_loop_steps=more, fit_loop_img_per_s=more * BATCH / loop_s,
+         fit_loop_ms_per_step=loop_s / more * 1e3,
+         peak_mem_gib=peak_gib,
+         noise_kernel={"ms": noise["ms"], "plain_ms": noise["plain_ms"],
+                       "bound_ms": noise["bound_ms"],
+                       "bound_by": noise["bound_by"],
+                       "launches_per_step_incl_metrics": per_step,
+                       "library_ms": None},
+         trace_steps=n_trace,
+         device_busy_share=busy_us / wall_us if busy_us else None,
+         device_ms_per_step=busy_us / 1e3 / n_trace,
+         top_ops_device_ms_per_step=dict(ops[:16]),
+         note="stages: CUDA events inside one step, median of 5; fit loop: "
+              "host feed included, metrics step every 5th step; trace: 3 "
+              "train_steps on one resident batch")
 
 
 def main():
@@ -433,11 +811,12 @@ def main():
         print(f"chip_smoke: the abcnet_tpu_torch package is missing beside "
               f"this script ({e})", file=sys.stderr)
         return 2
-    fixture_path = os.path.join(HERE, "abcnet_tpu_torch", "assets",
-                                "smoke_step43100.npz")
+    assets = os.path.join(HERE, "abcnet_tpu_torch", "assets")
     phase = "environment"
     try:
-        fixture = dict(np.load(fixture_path))
+        fixture = dict(np.load(os.path.join(assets, "smoke_step43100.npz")))
+        labels = dict(np.load(os.path.join(assets, "train_step43100.npz")))
+        samples = fixture_samples(fixture, labels)
         phase_environment(torch)
         phase = "kernels_vs_plain"
         errs = phase_kernels(torch, fixture)
@@ -445,8 +824,16 @@ def main():
         phase_f32(torch, fixture)
         phase = "serving_bf16"
         model, run, launches = phase_bf16(torch, fixture)
+        phase = "train_f32"
+        phase_train_f32(torch, samples, labels)
+        phase = "train_bf16"
+        state, cfg, train_launches = phase_train_bf16(torch, fixture,
+                                                      samples)
+        launches["unpack_noise"] = train_launches["unpack_noise"]
         phase = "times"
         kernels = phase_times(torch, fixture, model, run, launches, errs)
+        phase = "train_times"
+        phase_train_times(torch, samples, state, cfg, kernels)
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         import traceback
         traceback.print_exc()

@@ -2,8 +2,8 @@
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one: a CUDA kernel has no CPU mode, and the plain versions are held to
-abcnet_tpu on the CPU by tests/test_torch_unpack.py and
-tests/test_torch_peaks.py. The file imports no JAX, so on the GPU
+abcnet_tpu on the CPU by tests/test_torch_unpack.py,
+tests/test_torch_noise.py and tests/test_torch_peaks.py. The file imports no JAX, so on the GPU
 machine (which has none) it runs with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
@@ -14,6 +14,7 @@ Tolerance: bit-equality, scores and every index slot included.
 import pytest
 import torch
 
+from abcnet_tpu_torch.ops.noise import unpack_noise, unpack_noise_plain
 from abcnet_tpu_torch.ops.peaks import nms_topk, nms_topk_plain
 from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
 from torch_parity import NMS_CASES, cuda, packed_bits  # noqa: F401
@@ -37,6 +38,39 @@ def test_unpack_kernel_rejects_strided_input(cuda):
     bits = torch.zeros(2, 64, 512, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         unpack_bits(bits.transpose(1, 2))
+
+
+@pytest.mark.parametrize("seed", [0, 43100, 2 ** 63 - 1])
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_noise_kernel_matches_plain(cuda, dtype, b, seed):
+    bits = torch.from_numpy(packed_bits("random", b)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    rates = torch.rand(b, 2, device=cuda, generator=gen) * \
+        torch.tensor([0.002, 0.2], device=cuda)
+    before = unpack_noise.launches
+    got = unpack_noise(bits, rates, seed, dtype)
+    torch.cuda.synchronize()
+    assert unpack_noise.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, 512, 512)
+    assert torch.equal(got, unpack_noise_plain(bits, rates, seed, dtype))
+    # a seed held in device memory is the same seed
+    dev_seed = torch.tensor([seed], dtype=torch.int64, device=cuda)
+    assert torch.equal(got, unpack_noise(bits, rates, dev_seed, dtype))
+    assert torch.equal(unpack_noise(bits, torch.zeros_like(rates), seed,
+                                    dtype), unpack_bits(bits, dtype))
+
+
+def test_noise_kernel_rejects_strided_input(cuda):
+    bits = torch.zeros(2, 64, 512, dtype=torch.uint8, device=cuda)
+    rates = torch.zeros(2, 2, device=cuda)
+    with pytest.raises(ValueError):
+        unpack_noise(bits.transpose(1, 2), rates, 0)
+    with pytest.raises(ValueError):
+        unpack_noise(bits, torch.zeros(2, 4, device=cuda)[:, ::2], 0)
+    with pytest.raises(ValueError):
+        unpack_noise(bits, rates.cpu(), 0)
+    assert tuple(unpack_noise(bits[:0], rates[:0], 0).shape) == (0, 64, 4096)
 
 
 @pytest.mark.parametrize("case", sorted(NMS_CASES))

@@ -1,4 +1,4 @@
-"""The torch port's serving slice as a whole, on the CPU.
+"""The torch port's serving and training slices as wholes, on the CPU.
 
   * make_infer_pipeline + assembler against abcnet_tpu's, f32, snapshot
     weights, 128x128 crops of fixture drawings: equal integer peaks,
@@ -6,7 +6,12 @@
   * two fixture drawings at 512x512 in f32 against the JAX package's f32
     SMILES stored in the fixture;
   * the serving loop and the CLI;
-  * the package and chip_smoke.py import with jax and abcnet_tpu blocked;
+  * one fixture batch at 128x128 through `loss_and_metrics` of both
+    packages on the snapshot weights, eval mode: the total within 1e-4
+    relative, every term within 1e-4 relative (+1e-6), every metric pair
+    equal to 1e-5;
+  * every module of the package and chip_smoke.py import with jax, flax,
+    optax, orbax and abcnet_tpu blocked;
   * an entry point without device="cpu" raises when there is no GPU.
 """
 
@@ -25,7 +30,7 @@ from abcnet_tpu_torch.infer.assemble import assemble_batch
 from abcnet_tpu_torch.infer.decode import make_infer_pipeline
 from abcnet_tpu_torch.models.weights import load_snapshot
 from torch_parity import (FIXTURE, REPO, SNAPSHOT, assert_peaks_equal,
-                          flax_variables, jax_state, torch_model)
+                          flax_variables, jax_state, label_batch, torch_model)
 
 # Floats of the peak dict derive from logits that agree to 1e-4 (see
 # test_torch_model.py); the parabolic sub-cell offsets divide logit
@@ -59,6 +64,57 @@ def test_fixture_512_f32_matches_jax_smiles(fixture):
     preds = cli.img2smiles_loop(run, list(fixture["images"][[0, 40]]), 2,
                                 log_every=0)
     assert [p or "" for p in preds] == fixture["jax_f32"][[0, 40]].tolist()
+
+
+def test_training_forward_matches_jax_at_128(fixture):
+    """The training slice as a whole: packed bits -> unpack -> targets ->
+    UNet -> eight losses -> total (+ metrics), eval mode, f32."""
+    import jax
+    import jax.numpy as jnp
+
+    from abcnet_tpu.models.unet import UNet as FlaxUNet
+    from abcnet_tpu.train import trainer as jax_trainer
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.train import trainer
+
+    rows = (0, 1, 40, 41)
+    batch = label_batch(rows)
+    # The 128x128 centre crop of each drawing, labels shifted with it.
+    batch["image_bits"] = pack_images(np.ascontiguousarray(
+        fixture["images"][list(rows), 192:320, 192:320]))
+    for k in ("atoms", "bonds_i"):
+        batch[k] = batch[k].copy()
+        batch[k][..., :2] -= 48                 # (192 / 4) cells
+    # The JAX package's scatter applies numpy's negative indexing before it
+    # drops what is out of bounds, the port drops every cell outside the
+    # grid (tests/test_torch_targets.py pins that). So labels outside the
+    # crop, or on its row or column 0, are sent far out on the positive
+    # side, where both drop them.
+    for k in ("atoms", "bonds_i"):
+        xy = batch[k][..., :2]
+        outside = ((xy < 1) | (xy > 31)).any(-1)
+        batch[k][outside, 0] = 10_000
+
+    params, stats = flax_variables("snapshot")
+    want_total, want = jax_trainer.loss_and_metrics(
+        params, stats, FlaxUNet(dtype=jnp.float32).apply,
+        {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0),
+        0.0, False)
+    with torch.no_grad():
+        total, got = trainer.loss_and_metrics(
+            torch_model(params, stats), trainer.to_device(batch, "cpu"),
+            None, 0.0, train=False)
+    np.testing.assert_allclose(float(total), float(want_total), rtol=1e-4)
+    assert sorted(got["losses"]) == sorted(want["losses"])
+    for k, v in want["losses"].items():
+        np.testing.assert_allclose(float(got["losses"][k]), float(v),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    assert sorted(got["metrics"]) == sorted(want["metrics"])
+    for k, (num, den) in want["metrics"].items():
+        np.testing.assert_allclose(
+            [float(x) for x in got["metrics"][k]], [float(num), float(den)],
+            rtol=1e-5, atol=1e-5, err_msg=k)
+    assert float(want["metrics"]["atom_true_per_img"][0]) > 0
 
 
 class _FakePipeline:
@@ -123,7 +179,7 @@ import importlib, importlib.abc, os, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "optax", "abcnet_tpu"):
+        if top in ("jax", "jaxlib", "flax", "optax", "orbax", "abcnet_tpu"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -136,7 +192,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "abcnet_tpu")]
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                              "abcnet_tpu")]
 assert not bad, bad
 print(len(names))
 """
@@ -148,7 +205,12 @@ def test_port_imports_without_jax_or_abcnet_tpu():
                          text=True, timeout=300, cwd=REPO,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25      # every module was seen
+    assert int(out.stdout.split()[-1]) >= 38      # every module was seen
+    for name in ("data.augment", "data.encode", "data.raster", "ops.noise",
+                 "ops.targets", "ops.losses", "train.metrics",
+                 "train.trainer"):
+        assert os.path.exists(os.path.join(
+            REPO, "abcnet_tpu_torch", *name.split(".")) + ".py"), name
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

@@ -56,6 +56,11 @@ def test_unpack_rejects_what_the_kernel_does_not_take():
         unpack_bits(torch.zeros(1, 4, 2, dtype=torch.int32))
     with pytest.raises(TypeError):
         unpack_bits(torch.zeros(1, 4, 2, dtype=torch.uint8), torch.float16)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pipeline.device_unpack_bits(torch.zeros(1, 4, 2, dtype=torch.uint8),
+    # train=True goes through the noise kernel's wrapper, which takes a
+    # (B, H, W/8) batch only (tests/test_torch_noise.py holds the rest).
+    with pytest.raises(TypeError, match=r"\(B, H, W/8\)"):
+        pipeline.device_unpack_bits(torch.zeros(4, 2, dtype=torch.uint8),
                                     train=True)
+    out = pipeline.device_unpack_bits(torch.zeros(1, 4, 2, dtype=torch.uint8),
+                                      train=True)
+    assert tuple(out.shape) == (1, 4, 16, 1)

@@ -15,6 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SNAPSHOT = os.path.join(REPO, "snapshots", "r5_latest.npz")
 FIXTURE = os.path.join(REPO, "abcnet_tpu_torch", "assets",
                        "smoke_step43100.npz")
+TRAIN_FIXTURE = os.path.join(REPO, "abcnet_tpu_torch", "assets",
+                             "train_step43100.npz")
 
 
 @pytest.fixture
@@ -28,19 +30,21 @@ def cuda():
 
 def flax_variables(source="snapshot", size=128):
     """(params, batch_stats) numpy f32 trees of the production UNet:
-    the committed snapshot, or a random Flax init from seed `source`."""
+    the committed snapshot ("snapshot"), another snapshot file (a path
+    to an .npz), or a random Flax init from the integer seed `source`."""
     import jax
     import jax.numpy as jnp
 
     from abcnet_tpu.models.unet import UNet, init_unet
 
-    ref = init_unet(jax.random.PRNGKey(0 if source == "snapshot" else source),
+    ref = init_unet(jax.random.PRNGKey(0 if isinstance(source, str)
+                                       else source),
                     UNet(dtype=jnp.float32), (1, size, size, 1))
     ref = jax.tree_util.tree_map(np.asarray, ref)
-    if source != "snapshot":
+    if not isinstance(source, str):
         return ref["params"], ref["batch_stats"]
     from abcnet_tpu_torch.models.weights import _unflatten
-    z = np.load(SNAPSHOT)
+    z = np.load(SNAPSHOT if source == "snapshot" else source)
     tree = _unflatten({k: z[k] for k in z.files if k != "__step__"})
     like = lambda s, r: np.asarray(s, np.float32).reshape(r.shape)  # noqa: E731
     return (jax.tree_util.tree_map(like, tree["params"], ref["params"]),
@@ -62,6 +66,26 @@ def jax_state(params, stats):
     from abcnet_tpu.models.unet import UNet
     return types.SimpleNamespace(apply_fn=UNet(dtype=jnp.float32).apply,
                                  params=params, batch_stats=stats)
+
+
+def fixture_samples(rows):
+    """Fixture molecules `rows` as the port's raw Samples."""
+    from abcnet_tpu_torch.data.pipeline import Sample
+    z, lab = np.load(FIXTURE), np.load(TRAIN_FIXTURE)
+    return [Sample(z["images"][i], str(lab["atoms_string"][i]),
+                   str(lab["bonds_string"][i]), str(lab["smiles"][i]))
+            for i in rows]
+
+
+def label_batch(rows):
+    """The collated compact labels (and packed drawings) of fixture
+    molecules `rows`, un-augmented."""
+    import random
+
+    from abcnet_tpu_torch.data import pipeline
+    rng = random.Random(0)
+    return pipeline.collate([pipeline.sample_to_example(s, rng, train=False)
+                             for s in fixture_samples(rows)])
 
 
 def ink_images(b, size, seed):
