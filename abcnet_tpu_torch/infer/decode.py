@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from ..data import vocab
 from ..data.pipeline import device_unpack_bits, pack_images
-from ..ops.peaks import nms_topk
+from ..ops.peaks import nms_topk, nms_topk_pair
 from ..utils.device import resolve_device
 
 NO = vocab.NUM_OMEGA_BINS
@@ -70,13 +70,25 @@ def _stable_topk(x: torch.Tensor, k: int):
     return top[..., :k], idx[..., :k]
 
 
+def _peak_fields(top: torch.Tensor, idx: torch.Tensor, width: int):
+    idx = idx.long()
+    return top, idx // width, idx % width, torch.isfinite(top)
+
+
 def _topk_logit_peaks(logit: torch.Tensor, k: int, threshold: float):
     """logit: (B, G, G). Returns (score, x, y, valid), each (B, k); score
     is f32, x/y int64 (row, col)."""
-    top, idx = nms_topk(logit, k, threshold)
-    idx = idx.long()
-    width = logit.shape[-1]
-    return top, idx // width, idx % width, torch.isfinite(top)
+    return _peak_fields(*nms_topk(logit, k, threshold), logit.shape[-1])
+
+
+def _topk_logit_peaks_pair(a_logit: torch.Tensor, k_a: int,
+                           b_logit: torch.Tensor, k_b: int,
+                           threshold: float):
+    """`_topk_logit_peaks` of the atom and the bond heatmap, through one
+    kernel launch on the GPU."""
+    a, b = nms_topk_pair(a_logit, k_a, b_logit, k_b, threshold)
+    return (_peak_fields(*a, a_logit.shape[-1]),
+            _peak_fields(*b, b_logit.shape[-1]))
 
 
 def _antipodal_keep(w: torch.Tensor) -> torch.Tensor:
@@ -206,14 +218,14 @@ def extract_peaks(preds: Dict[str, torch.Tensor],
     monotonic); the gathered class vectors are argmaxed at the peaks."""
     thr = cfg.logit_threshold
     a_logit = preds["atom_target"][..., 0]
-    a_raw, ax, ay, a_valid = _topk_logit_peaks(a_logit, cfg.max_atoms, thr)
+    b_logit = preds["bond_target"][..., 0]
+    (a_raw, ax, ay, a_valid), (_, bx, by, b_valid) = _topk_logit_peaks_pair(
+        a_logit, cfg.max_atoms, b_logit, cfg.max_bonds, thr)
     b_idx = torch.arange(a_logit.shape[0], device=a_logit.device)[:, None]
     atom_type = preds["atom_type"][b_idx, ax, ay].argmax(-1)
     atom_charge = preds["atom_charge"][b_idx, ax, ay].argmax(-1)
     atom_hs = preds["atom_hs"][b_idx, ax, ay].argmax(-1)
 
-    b_logit = preds["bond_target"][..., 0]
-    _, bx, by, b_valid = _topk_logit_peaks(b_logit, cfg.max_bonds, thr)
     omega = preds["bond_omega"]
     w = omega[b_idx, bx, by].float()
 
@@ -349,12 +361,11 @@ def extract_peaks_sparse(heatmaps: Dict[str, torch.Tensor],
     dense path clips to the edge cell."""
     thr = cfg.logit_threshold
     a_logit = heatmaps["atom_target"][..., 0]
-    a_raw, ax, ay, a_valid = _topk_logit_peaks(a_logit, cfg.max_atoms, thr)
+    b_logit = heatmaps["bond_target"][..., 0]
+    (a_raw, ax, ay, a_valid), (_, bx, by, b_valid) = _topk_logit_peaks_pair(
+        a_logit, cfg.max_atoms, b_logit, cfg.max_bonds, thr)
     at, ac, ah = apply_heads_fused(heads["atom"],
                                    gather_windows(feats, ax, ay, 1), dtype)
-
-    b_logit = heatmaps["bond_target"][..., 0]
-    _, bx, by, b_valid = _topk_logit_peaks(b_logit, cfg.max_bonds, thr)
     b, kb = bx.shape
 
     if cfg.halo_margin > 0:

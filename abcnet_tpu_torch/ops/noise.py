@@ -17,8 +17,14 @@ and JAX's threefry give other bits, so the two packages agree on the
 noise by distribution only (pallas_input.py:14-20 makes the same
 statement about its two paths).
 
-Bound on the card: the Philox arithmetic, not the 17 bytes moved per
-packed byte (the CUDA source counts both).
+Bound on the card: the Philox arithmetic, 32-bit integer work, not the
+17 bytes moved per packed byte (the CUDA source counts both). The kernel
+compares the random words with integer thresholds instead of making
+floats of them; `rate_thresholds` is that arithmetic on tensors.
+
+A NaN rate behaves as in the float compares, where `u < NaN` and
+`u >= NaN` are both false: a NaN salt rate adds no ink, a NaN pepper
+rate erases the image. Kernel and plain version agree on that.
 """
 
 from __future__ import annotations
@@ -87,6 +93,28 @@ def noise_uniforms(b: int, per_image: int, seed: Seed, device="cpu"
             u[..., 8:].reshape(b, per_image * 8))
 
 
+def rate_thresholds(rates: torch.Tensor) -> torch.Tensor:
+    """The kernel's integer form of the two compares. rates: (..., 2) f32
+    (salt, pepper). Returns int64 T of the same shape with, for every
+    24-bit integer m and u = m * 2^-24,
+
+        u <  salt    ==  m <  T[..., 0]
+        u >= pepper  ==  m >= T[..., 1]
+
+    T = ceil(rate * 2^24) clamped to [0, 2^24]; the product is exact in
+    f32. A NaN salt rate gives 0 and a NaN pepper rate 2^24, so that both
+    compares stay false. On the 32-bit word r with m = r >> 8 the kernel
+    tests r < (T << 8) and r >= (T << 8), and takes T = 2^24, which does
+    not fit that form, apart."""
+    if rates.dtype != torch.float32 or rates.shape[-1] != 2:
+        raise TypeError("rate_thresholds takes (..., 2) float32 rates")
+    one = float(1 << 24)
+    x = torch.ceil(rates * one)
+    salt = torch.where(x[..., 0] > 0, x[..., 0].clamp(max=one), 0.0)
+    pepper = torch.where(x[..., 1] < one, x[..., 1].clamp(min=0.0), one)
+    return torch.stack([salt, pepper], dim=-1).to(torch.int64)
+
+
 def _check(bits: torch.Tensor, rates: torch.Tensor, dtype) -> None:
     if bits.dtype != torch.uint8 or bits.dim() != 3:
         raise TypeError("unpack_noise takes (B, H, W/8) uint8 bits, got "
@@ -122,6 +150,9 @@ def _lib() -> ctypes.CDLL:
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.abcnet_int32_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.abcnet_int32_probe.restype = ctypes.c_longlong
     return lib
 
 
@@ -143,6 +174,9 @@ def unpack_noise(bits: torch.Tensor, rates: torch.Tensor, seed: Seed,
     if not bits.is_contiguous() or not rates.is_contiguous():
         raise ValueError("unpack_noise takes contiguous bits and rates")
     b, h, wb = bits.shape
+    if h * wb > 65535 * 256:
+        raise ValueError("unpack_noise: more than 16,776,960 packed bytes "
+                         "per image")
     seed_t = _seed_tensor(seed, bits.device)
     out = torch.empty(b, h, wb * 8, dtype=dtype, device=bits.device)
     if bits.numel() == 0:
@@ -157,6 +191,23 @@ def unpack_noise(bits: torch.Tensor, rates: torch.Tensor, seed: Seed,
                            f"{err})")
     unpack_noise.launches += 1
     return out
+
+
+def int32_probe(out: torch.Tensor, rounds: int) -> int:
+    """Launch the probe kernel of csrc/noise.cu: out.numel() threads (a
+    multiple of 256, out is int32 on the card) run `rounds` Philox rounds
+    on four counters each, nothing else. Returns the integer instructions
+    run per thread, so that a timing of this call gives the card's
+    rate for the noise kernel's instruction mix. For measurements only."""
+    if out.device.type != "cuda" or out.dtype != torch.int32 or \
+            out.numel() % 256 or not out.is_contiguous():
+        raise ValueError("int32_probe takes a contiguous int32 CUDA tensor "
+                         "of a multiple of 256 elements")
+    ops = _lib().abcnet_int32_probe(out.data_ptr(), out.numel() // 256,
+                                    rounds, stream_ptr(out))
+    if ops < 0:
+        raise RuntimeError("int32_probe kernel launch failed")
+    return ops
 
 
 unpack_noise.launches = 0

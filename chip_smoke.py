@@ -10,12 +10,17 @@ transport, host assembly, scoring — on the 64-molecule fixture
 abcnet_tpu_torch/assets/smoke_step43100.npz, and prints one JSON line
 per phase:
 
-  1. environment: the card, its power limit, the kernel and assembler
-     builds (all compilers started at once);
+  1. environment: the card, its power limit and maximum SM clock, the
+     kernel and assembler builds (all compilers started at once), ptxas's
+     registers and spills, and the counts of the noise kernel's
+     instructions by opcode (cuobjdump -sass);
   2. kernels against their plain PyTorch versions on the card, bit-equal
-     (unpack on random and fixture bits; NMS/top-K on random, plateau,
-     threshold, edge, constant and below-threshold maps, K = 128 and 160,
-     f32 and bf16);
+     (unpack on random and fixture bits; the noise kernel on twelve
+     cases; NMS/top-K on random, plateau, threshold, edge, constant and
+     below-threshold maps, on maps that try the seams between the
+     kernel's bands of rows, K = 128 and 160, on an odd shape and on
+     K = H*W, f32 and bf16, every cluster size, and both heatmaps in one
+     launch against two plain calls);
   3. f32 serving (TF32 off): SMILES against the JAX package's f32 SMILES,
      gate >= 62/64;
   4. bf16 serving, the production setting, through the CLI's serving
@@ -25,7 +30,9 @@ per phase:
   5. times on the card: each kernel and its plain version at the serving
      shapes (median of 25 CUDA-event timings, each launched behind a
      sleep kernel so the host's launch overhead is not timed), the bound
-     from the bytes each must move, a per-stage breakdown of one batch,
+     from the bytes each must move or the integer instructions it must
+     run, an empty kernel in the NMS kernel's launch shape, the NMS
+     kernel at every cluster size, a per-stage breakdown of one batch,
      the serving loop's img/s at batch 64 on fresh input, and a
      torch.profiler trace of the loop (device busy share, device time
      per operator);
@@ -61,13 +68,22 @@ REPS = 25
 SLEEP_CYCLES = 4_000_000          # ~2 ms at H100 clocks, hides the launch
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM (data sheet)
 F32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
-# The same data sheet rate is used for the noise kernel's integer work: the
-# sheet has no int32 entry. The SM's integer rate is lower than its fp32
-# rate, so the true floor lies above this bound.
-# Operations per packed byte in csrc/noise.cu: 4 Philox calls of 10 rounds
-# (4 multiplies + 4 xors each) and 9 key bumps (2 adds), then per pixel
-# about 13 (bit extract, two shift-convert-scale-compare, or, and).
-NOISE_OPS_PER_BYTE = 4 * (10 * 8 + 9 * 2) + 8 * 13
+# The noise kernel's arithmetic is 32-bit integer work. An SM of compute
+# capability 9.0 executes 64 such instructions a clock (integer add, multiply
+# and logic rows of the arithmetic-throughput table in NVIDIA's CUDA C++
+# programming manual), half its 128 f32 lanes; the card has 132 SMs and its
+# maximum SM clock is read from nvidia-smi (clocks.max.sm).
+SMS = 132
+INT32_LANES_PER_SM_CLOCK = 64
+# The least integer instructions unpack + noise needs per packed byte (4
+# Philox4x32-10 calls on counters that differ in their draw number only):
+#   rounds 3-10 of the 4 calls, 2 wide multiplies + 2 three-input xors each
+#   round 1: the multiply by the byte index, shared; 4 xors
+#   round 2: 4 multiplies (the 4 draws still share one counter word), 7 xors
+#   18 round-key additions, shared by the 4 calls
+#   8 pixels x (2 compares + 2 logic operations)
+#   8 pixels x 1 to select and pack the output value
+NOISE_OPS_PER_BYTE = 8 * 4 * 4 + (1 + 4) + (4 + 7) + 18 + 8 * 4 + 8
 TRAIN_STEPS = 30                  # steps of the train_bf16 phase
 TRAIN_LOSS_FRACTION = 0.5         # gate: last total < this x first total
 EVAL_REL_TOL = 1e-3               # train_f32: per loss term against JAX
@@ -84,6 +100,38 @@ def smi_line():
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sass_opcodes(path, kernel_substring):
+    """{opcode: count} over the SASS of the kernels in the library `path`
+    whose mangled name holds `kernel_substring` (cuobjdump -sass), the
+    opcode cut at its first dot but for the wide and high multiplies."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts, inside = collections.Counter(), False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel_substring in line
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if inside and m:
+            op = m.group(1)
+            keep = [t for t in op.split(".")[1:] if t in ("WIDE", "HI")]
+            counts[".".join([op.split(".")[0], *keep])] += 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -123,9 +171,12 @@ def phase_environment(torch):
         with open(paths[name] + ".log") as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
+    # The bf16 instance of the noise kernel: Lb1 is the mangled <true>.
+    sass = sass_opcodes(paths["noise"], "unpack_noise_kernelILb1")
     emit("environment", ok=True, device=torch.cuda.get_device_name(0),
-         nvidia_smi=smi_line(), torch=torch.__version__,
-         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
+         nvidia_smi=smi_line(), max_sm_clock_mhz=max_sm_clock_hz() / 1e6,
+         torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+         ptxas=ptxas, noise_bf16_sass_opcodes=sass,
          assembler="native" if load_native() is not None else "numpy")
 
 
@@ -145,15 +196,52 @@ def _peak_cases(torch, g=128, b=BATCH):
     cases += [("plateau_threshold", plateau, -1.0), ("edges", edges, 0.5),
               ("constant", torch.full((b, g, g), 0.25), -1.0),
               ("below_threshold", torch.full((b, g, g), -2.0), -1.0)]
+
+    # Maps that try the seams between the kernel's bands of rows (32 rows
+    # each at cluster size 4, 16 at 8).
+    seams = torch.full((b, g, g), -5.0)
+    dense = torch.full((b, g, g), -5.0)
+    ties = torch.full((b, g, g), -5.0)
+    late = torch.full((b, g, g), -5.0)
+    dense[:, 0:32:2, 0:g:2] = torch.rand(b, 16, g // 2, generator=gen) * 4
+    dense[:, 40, 40], dense[:, 70, 5], dense[:, g - 1, g - 1] = 9.0, 8.0, 7.0
+    late[:, 100:g:3, 1:g:9] = torch.rand(b, 10, 15, generator=gen) * 3
+    late[:, 0, 0] = -1.0                               # at threshold: drops
+    for i in range(b):
+        for n, seam in enumerate((32, 64, 96)):
+            c = 10 + 30 * n + i % 20
+            seams[i, seam - 1:seam + 1, c:c + 2] = 2.0 + n     # plateau
+            seams[i, seam - 1, c + 8] = seams[i, seam + 1, c + 8] = 1.5
+            seams[i, seam - 1, 0] = seams[i, seam, g - 1] = 4.0 + n
+            seams[i, seam, 3] = 3.0                    # on a seam row
+            seams[i, seam - 1, 100], seams[i, seam, 101] = 0.5, 0.75
+        for r, c in ((120, 3), (5, 100), (64, 64), (33, 0), (31, g - 1),
+                     (96, 7), (5, 2), (70, 90)):
+            ties[i, r, (c + i) % g] = 1.25             # one score, 4 bands
+        ties[i, 50, 50] = 6.0
+    cases += [("band_seams", seams, -1.0), ("dense_band", dense, -1.0),
+              ("ties_across_bands", ties, -1.0), ("late_band_only", late, -1.0)]
     return cases
 
 
-def check_nms(torch, maps, k, thr):
+def _small_peak_cases(torch, b=BATCH):
+    """Shapes off the serving path, each with its own K: a width that takes
+    the kernel's scalar route, and K = H*W on a map smaller than 2K cells,
+    where the exhausted slots come from every band's bitmask."""
+    gen = torch.Generator().manual_seed(1)
+    return [("odd_shape", torch.randn(b, 20, 28, generator=gen) * 3, -1.0, 24),
+            ("k_equals_n", torch.randn(b, 8, 8, generator=gen) * 3, -1.0, 64)]
+
+
+def check_nms(torch, maps, k, thr, cluster=None, got=None):
     """Kernel vs plain version on one batch of maps. Returns (max abs
-    score difference over finite slots, slots compared). Raises if a
-    score or an index differs."""
-    from abcnet_tpu_torch.ops.peaks import nms_topk, nms_topk_plain
-    s, i = nms_topk(maps, k, thr)
+    score difference over finite slots, slots compared, whether every
+    index slot is equal, the exhausted ones too). Raises if a score or an
+    index of a finite slot differs. `got` is a result to hold against the
+    plain version in place of a single-map launch."""
+    from abcnet_tpu_torch.ops.peaks import CLUSTER, nms_topk, nms_topk_plain
+    s, i = got if got is not None else nms_topk(maps, k, thr,
+                                                cluster or CLUSTER)
     ps, pi = nms_topk_plain(maps, k, thr)
     finite = torch.isfinite(ps)
     if not torch.equal(torch.isfinite(s), finite):
@@ -165,6 +253,21 @@ def check_nms(torch, maps, k, thr):
     err = float((s[finite] - ps[finite]).abs().max()) if finite.any() \
         else 0.0
     return err, int(finite.sum()), bool(torch.equal(i, pi))
+
+
+def check_nms_pair(torch, a_map, b_map, thr=-1.0):
+    """Both maps through one launch (K = 128 and 160, as the decode calls
+    it) against two plain calls. Returns (max abs error, every index slot
+    equal); raises on a difference in a finite slot or a launch count
+    other than one."""
+    from abcnet_tpu_torch.ops.peaks import nms_topk, nms_topk_pair
+    before = nms_topk.launches
+    got_a, got_b = nms_topk_pair(a_map, 128, b_map, 160, thr)
+    if nms_topk.launches != before + 1:
+        raise AssertionError("nms_topk_pair: not one launch")
+    err_a, _, idx_a = check_nms(torch, a_map, 128, thr, got=got_a)
+    err_b, _, idx_b = check_nms(torch, b_map, 160, thr, got=got_b)
+    return max(err_a, err_b), idx_a and idx_b
 
 
 def check_noise(torch, bit_sets, dev):
@@ -257,16 +360,34 @@ def phase_kernels(torch, fixture):
     noise_cases, noise_err = check_noise(torch, bit_sets, dev)
 
     nms_err, nms_cases = 0.0, []
-    for name, maps, thr in _peak_cases(torch):
+    big = _peak_cases(torch)
+    cases = [(name, maps, thr, k) for name, maps, thr in big
+             for k in (128, 160)] + _small_peak_cases(torch)
+    for name, maps, thr, k in cases:
         for dt in (torch.float32, torch.bfloat16):
             m = maps.to(dev, dt)
-            for k in (128, 160):
-                err, n_finite, all_idx = check_nms(torch, m, k, thr)
-                nms_err = max(nms_err, err)
-                nms_cases.append({"case": name, "dtype": str(dt)[6:],
-                                  "k": k, "finite_slots": n_finite,
-                                  "all_indices_equal": all_idx})
+            err, n_finite, all_idx = check_nms(torch, m, k, thr)
+            # the same slots whatever number of CTAs shares a map
+            others = all(check_nms(torch, m, k, thr, c)[2] for c in (1, 2, 8))
+            nms_err = max(nms_err, err)
+            nms_cases.append({"case": name, "dtype": str(dt)[6:],
+                              "k": k, "finite_slots": n_finite,
+                              "all_indices_equal": all_idx,
+                              "cluster_1_2_8_equal": others})
+    # Both heatmaps in one launch: every case beside the next one.
+    for (name, a_map, thr), (other, b_map, _) in zip(big, big[1:] + big[:1]):
+        for dt in (torch.float32, torch.bfloat16):
+            err, all_idx = check_nms_pair(torch, a_map.to(dev, dt),
+                                          b_map.to(dev, dt), thr)
+            nms_err = max(nms_err, err)
+            nms_cases.append({"case": f"pair:{name}+{other}",
+                              "dtype": str(dt)[6:], "k": [128, 160],
+                              "all_indices_equal": all_idx})
     torch.cuda.synchronize()
+    if not all(c["all_indices_equal"] and c.get("cluster_1_2_8_equal", True)
+               for c in nms_cases):
+        raise AssertionError("nms_topk: an exhausted slot's index differs "
+                             "from the plain version")
     emit("kernels_vs_plain", ok=True, unpack_cases=unpack_cases,
          unpack_max_abs_err=unpack_err, noise_cases=noise_cases,
          noise_max_abs_err=noise_err, nms_cases=nms_cases,
@@ -320,12 +441,14 @@ def phase_bf16(torch, fixture):
     port_rep = score_pairs(truth, [p or None for p in preds])
     tpu_rep = score_pairs(truth, [p or None for p in tpu])
     agree = sum(p == t for p, t in zip(preds, tpu))
+    n_batches = -(-len(truth) // BATCH)
     ok = (port_rep.exact_match >= tpu_rep.exact_match - 3 / 64
-          and all(v > 0 for v in launches.values()))
+          and launches == {"unpack_bits": n_batches, "nms_topk": n_batches})
     emit("serving_bf16", ok=ok, launches=launches,
          agree_with_tpu_bf16=agree, n=len(truth),
          port_exact=port_rep.exact_match, tpu_exact=tpu_rep.exact_match,
-         gate="port_exact >= tpu_exact - 3/64", port=str(port_rep),
+         gate="port_exact >= tpu_exact - 3/64; one unpack and one NMS "
+              "launch per batch", port=str(port_rep),
          tpu=str(tpu_rep), wall_s_incl_load=wall,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          mismatched_vs_tpu=[{"row": i, "port": p, "tpu": t}
@@ -395,8 +518,10 @@ def phase_times(torch, fixture, model, run, launches, errs):
 
     from abcnet_tpu_torch.__main__ import img2smiles_loop
     from abcnet_tpu_torch.data.pipeline import draw_noise_rates, pack_images
-    from abcnet_tpu_torch.ops.noise import unpack_noise, unpack_noise_plain
-    from abcnet_tpu_torch.ops.peaks import nms_topk, nms_topk_plain
+    from abcnet_tpu_torch.ops.noise import int32_probe, unpack_noise, \
+        unpack_noise_plain
+    from abcnet_tpu_torch.ops.peaks import CLUSTER, nms_topk, \
+        nms_topk_pair, nms_topk_pair_plain, null_launch
     from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
 
     images = fixture["images"]
@@ -410,11 +535,19 @@ def phase_times(torch, fixture, model, run, launches, errs):
     a_map = heatmaps["atom_target"][..., 0].contiguous()
     b_map = heatmaps["bond_target"][..., 0].contiguous()
     for m, k in ((a_map, 128), (b_map, 160)):      # real maps, real data
-        err, _, _ = check_nms(torch, m, k, -1.0)
+        err, _, all_idx = check_nms(torch, m, k, -1.0)
         errs["nms_topk"] = max(errs["nms_topk"], err)
+        if not all_idx:
+            raise AssertionError("nms_topk on the real heatmaps: an index "
+                                 "slot differs from the plain version")
+    err, all_idx = check_nms_pair(torch, a_map, b_map)
+    errs["nms_topk"] = max(errs["nms_topk"], err)
+    if not all_idx:
+        raise AssertionError("nms_topk_pair on the real heatmaps: an index "
+                             "slot differs from the plain version")
 
-    def both(fn):
-        return lambda: (fn(a_map, 128, -1.0), fn(b_map, 160, -1.0))
+    def pair(cluster=CLUSTER):
+        return lambda: nms_topk_pair(a_map, 128, b_map, 160, -1.0, cluster)
 
     el = 2 if dt == torch.bfloat16 else 4
     unpack_bytes = bits.numel() + bits.numel() * 8 * el
@@ -427,37 +560,75 @@ def phase_times(torch, fixture, model, run, launches, errs):
     seed = torch.tensor([43100], dtype=torch.int64, device="cuda")
     noise_bytes = unpack_bytes + rates.numel() * 4 + 8
     noise_ops = bits.numel() * NOISE_OPS_PER_BYTE
+    int32_ops_per_s = SMS * INT32_LANES_PER_SM_CLOCK * max_sm_clock_hz()
     rows = [
         ("unpack_bits", "abcnet_tpu_torch/csrc/unpack.cu",
          "abcnet_tpu/ops/pallas_input.py:59",
          lambda: unpack_bits(bits, dt), lambda: unpack_bits_plain(bits, dt),
-         unpack_bytes, bits.numel() * 8,
+         unpack_bytes, bits.numel() * 8, "f32",
          f"({BATCH},512,64) u8 -> ({BATCH},512,512) {str(dt)[6:]}"),
         ("unpack_noise", "abcnet_tpu_torch/csrc/noise.cu",
          "abcnet_tpu/ops/pallas_input.py:63",
          lambda: unpack_noise(bits, rates, seed, dt),
          lambda: unpack_noise_plain(bits, rates, seed, dt),
-         noise_bytes, noise_ops,
+         noise_bytes, noise_ops, "int32",
          f"({BATCH},512,64) u8 + ({BATCH},2) f32 rates -> ({BATCH},512,512) "
          f"{str(dt)[6:]}; launches counted over the train_bf16 phase"),
         ("nms_topk", "abcnet_tpu_torch/csrc/nms_topk.cu",
          "abcnet_tpu/ops/pallas_peaks.py:78",
-         both(nms_topk), both(nms_topk_plain), nms_bytes, nms_ops,
-         f"2 launches per batch: ({BATCH},128,128) {str(dt)[6:]} "
-         "K=128 and K=160"),
+         pair(),
+         lambda: nms_topk_pair_plain(a_map, 128, b_map, 160, -1.0),
+         nms_bytes, nms_ops, "f32",
+         f"1 launch per batch for both maps: 2 x ({BATCH},128,128) "
+         f"{str(dt)[6:]}, K=128 and K=160, cluster of {CLUSTER} CTAs a map"),
     ]
     kernels = []
-    for name, src, repl, kern, plain, nbytes, nops, shape in rows:
+    for name, src, repl, kern, plain, nbytes, nops, ops_type, shape in rows:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_OPS_PER_S * 1e3
+        t_ops = nops / (int32_ops_per_s if ops_type == "int32"
+                        else F32_OPS_PER_S) * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": device_ms(torch, kern), "plain_ms": device_ms(torch, plain),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": shape})
-    emit("kernel_times", ok=True, kernels=kernels)
+            "library_ms": None, "operations_type": ops_type, "shape": shape})
+
+    dense = (torch.randn(BATCH, 128, 128, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2)) * 3).to(dt)
+    # Beside the NMS row: the two single-map launches it replaced, an empty
+    # kernel in its launch shape, and the pair at every cluster size.
+    nms_extra = {
+        "two_launch_ms": device_ms(torch, lambda: (
+            nms_topk(a_map, 128, -1.0), nms_topk(b_map, 160, -1.0))),
+        "null_launch_ms": device_ms(torch, lambda: null_launch(
+            BATCH, 128, 128, 160, maps=2)),
+        "by_cluster_ms": {str(c): device_ms(torch, pair(c))
+                          for c in (1, 2, 4, 8)},
+        # maps with far more than K survivors in every band (random logits,
+        # what an untrained model gives): the sorting route
+        "dense_maps_ms": device_ms(torch, lambda: nms_topk_pair(
+            dense, 128, dense, 160, -1.0)),
+    }
+    # Beside the noise row: what the card executes of a Philox round's
+    # instruction mix, against the table rate the bound is made from.
+    probe_out = torch.empty(SMS * 16 * 256, dtype=torch.int32, device="cuda")
+    probe_ops = int32_probe(probe_out, 2048) * probe_out.numel()
+    probe_ms = device_ms(torch, lambda: int32_probe(probe_out, 2048))
+    noise_extra = {
+        "int32_table_ops_per_s": int32_ops_per_s,
+        "int32_probe_ops_per_s": probe_ops / (probe_ms * 1e-3),
+        "ops_per_byte": NOISE_OPS_PER_BYTE,
+        "bytes_bound_ms": noise_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    emit("kernel_times", ok=True, kernels=[
+        {**k, "bound_by": k["bound_by"] if k["bound_by"] == "bytes"
+         else f"{k['operations_type']} operations",
+         **(nms_extra if k["name"] == "nms_topk" else {}),
+         **(noise_extra if k["name"] == "unpack_noise" else {})}
+        for k in kernels])
 
     # Serving loop at batch 64 on fresh input: eight distinct batches (the
     # fixture shifted by a few pixels), a host fetch of every batch's

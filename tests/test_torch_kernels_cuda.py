@@ -14,8 +14,10 @@ Tolerance: bit-equality, scores and every index slot included.
 import pytest
 import torch
 
+from abcnet_tpu_torch.ops import peaks
 from abcnet_tpu_torch.ops.noise import unpack_noise, unpack_noise_plain
-from abcnet_tpu_torch.ops.peaks import nms_topk, nms_topk_plain
+from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
+                                        nms_topk_plain)
 from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
 from torch_parity import NMS_CASES, cuda, packed_bits  # noqa: F401
 
@@ -61,6 +63,21 @@ def test_noise_kernel_matches_plain(cuda, dtype, b, seed):
                                     dtype), unpack_bits(bits, dtype))
 
 
+def test_noise_kernel_extreme_rates(cuda):
+    """Rates the integer thresholds take apart: 0, 1 and above, negative,
+    infinite and NaN, the smallest steps of a 24-bit uniform."""
+    nan, inf = float("nan"), float("inf")
+    rates = torch.tensor([[nan, 0.1], [0.1, nan], [-1.0, -0.5], [2.0, 0.0],
+                          [0.5, inf], [inf, 0.25], [1.0, 1.0], [0.0, 1.0],
+                          [2.0 ** -24, 2.0 ** -25], [1 - 2.0 ** -24, 2.0 ** -24],
+                          [1.0, 0.5], [nan, nan]], device=cuda)
+    bits = torch.from_numpy(packed_bits("random", len(rates))).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = unpack_noise(bits, rates, 17, dtype)
+        assert torch.equal(got, unpack_noise_plain(bits, rates, 17, dtype))
+    assert got[3].all() and not got[1].any() and not got[6].any()
+
+
 def test_noise_kernel_rejects_strided_input(cuda):
     bits = torch.zeros(2, 64, 512, dtype=torch.uint8, device=cuda)
     rates = torch.zeros(2, 2, device=cuda)
@@ -86,10 +103,81 @@ def test_nms_kernel_matches_plain(cuda, case, dtype):
     assert torch.equal(s, ps) and torch.equal(i, pi)
 
 
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+@pytest.mark.parametrize("cluster", [1, 2, 8])
+def test_nms_kernel_any_cluster_size(cuda, case, cluster):
+    """The same slots whatever number of CTAs shares a map."""
+    make, k, thr = NMS_CASES[case]
+    m = torch.from_numpy(make()).to(cuda, torch.bfloat16)
+    s, i = nms_topk(m, k, thr, cluster=cluster)
+    ps, pi = nms_topk_plain(m, k, thr)
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_pair_kernel_matches_two_plain_calls(cuda, dtype, b):
+    """Both heatmaps of a batch through one launch, K = 128 and 160."""
+    gen = torch.Generator().manual_seed(b)
+    a_map = (torch.randn(b, 128, 128, generator=gen) * 3).to(cuda, dtype)
+    b_map = (torch.randn(b, 128, 128, generator=gen) - 4.5).to(cuda, dtype)
+    before = nms_topk.launches
+    (sa, ia), (sb, ib) = nms_topk_pair(a_map, 128, b_map, 160, -1.0)
+    torch.cuda.synchronize()
+    assert nms_topk.launches == before + 1
+    pa, pb = nms_topk_plain(a_map, 128, -1.0), nms_topk_plain(b_map, 160, -1.0)
+    assert torch.equal(sa, pa[0]) and torch.equal(ia, pa[1])
+    assert torch.equal(sb, pb[0]) and torch.equal(ib, pb[1])
+    assert int(torch.isfinite(sb).sum()) < sb.numel()     # exhausted slots
+
+
+def test_nms_pair_kernel_rejects_unlike_maps(cuda):
+    a = torch.zeros(2, 16, 16, device=cuda)
+    with pytest.raises(ValueError):
+        nms_topk_pair(a, 4, a[:, :8], 4, -1.0)
+    with pytest.raises(ValueError):
+        nms_topk_pair(a, 4, a.cpu(), 4, -1.0)
+    with pytest.raises(ValueError):
+        nms_topk(a.transpose(1, 2), 4, -1.0)
+    assert tuple(nms_topk(a[:0], 4, -1.0)[1].shape) == (0, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_kernel_unaligned_map_takes_the_scalar_route(cuda, dtype):
+    """A contiguous map that starts one element into its buffer cannot be
+    read in 16-byte words."""
+    gen = torch.Generator().manual_seed(3)
+    buf = (torch.randn(2 * 128 * 128 + 1, generator=gen) * 3).to(cuda, dtype)
+    m = buf[1:].view(2, 128, 128)
+    assert m.is_contiguous() and m.data_ptr() % 16
+    s, i = nms_topk(m, 128, -1.0)
+    ps, pi = nms_topk_plain(m, 128, -1.0)
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+
+
 def test_nms_kernel_all_survivors_at_full_grid(cuda):
-    """A flat 128x128 map: all 16,384 cells survive and are sorted."""
+    """A flat 128x128 map: all 16,384 cells survive and are sorted, in the
+    default 48 KB of dynamic shared memory a CTA gets without asking."""
     m = torch.full((3, 128, 128), 0.5, device=cuda)
     s, i = nms_topk(m, 160, -1.0)
     ps, pi = nms_topk_plain(m, 160, -1.0)
     assert torch.equal(s, ps) and torch.equal(i, pi)
     assert i[0].tolist() == list(range(160))
+    lib = peaks._lib()
+    assert 0 < lib.abcnet_nms_topk_smem_bytes(128, 128, 160,
+                                              peaks.CLUSTER) <= 48 * 1024
+    assert lib.abcnet_nms_topk_cluster(128, 128, 160, peaks.CLUSTER) == \
+        peaks.CLUSTER
+
+
+def test_nms_kernel_single_band_shapes(cuda):
+    """Shapes only one CTA can take: a single row of 16,384 cells with
+    K = n (more than 48 KB of shared memory, asked for once), and maps with
+    fewer rows than the cluster has CTAs."""
+    gen = torch.Generator().manual_seed(4)
+    for shape, k in (((1, 1, 16384), 16384), ((2, 3, 40), 120),
+                     ((2, 5, 8), 40), ((1, 2, 8192), 300)):
+        m = (torch.randn(*shape, generator=gen) * 3).to(cuda)
+        s, i = nms_topk(m, k, -1.0)
+        ps, pi = nms_topk_plain(m, k, -1.0)
+        assert torch.equal(s, ps) and torch.equal(i, pi), shape

@@ -13,7 +13,10 @@
     deviations of the rates given, and inside the bounds that
     tests/test_pallas_input.py::test_train_mode_noise_rates holds the
     JAX kernel to;
-  * the same (rates, seed) or generator state gives the same mask.
+  * the same (rates, seed) or generator state gives the same mask;
+  * the integer thresholds the CUDA kernel compares its random words
+    with (`rate_thresholds`) against the float compares of the plain
+    version: exact, NaN rates included.
 """
 
 import jax
@@ -25,7 +28,8 @@ import torch
 from abcnet_tpu.ops.pallas_input import fused_unpack_noise
 from abcnet_tpu_torch.data import pipeline
 from abcnet_tpu_torch.ops.noise import (noise_uniforms, philox4x32_10,
-                                        unpack_noise, unpack_noise_plain)
+                                        rate_thresholds, unpack_noise,
+                                        unpack_noise_plain)
 from abcnet_tpu_torch.ops.unpack import unpack_bits_plain
 
 M32 = 0xFFFFFFFF
@@ -157,6 +161,62 @@ def test_same_seed_same_mask_and_images_differ():
     assert torch.equal(
         pipeline.device_unpack_bits(t, train=True, generator=g1),
         pipeline.device_unpack_bits(t, train=True, generator=g2))
+
+
+def test_integer_thresholds_equal_float_compare():
+    """u < s == m < T and u >= s == m >= T for u = m * 2^-24, at the
+    threshold's neighbours and the range's ends, for both columns; and in
+    the kernel's 32-bit form, r < (T << 8) with T = 2^24 taken apart, for
+    the low byte of r all zeros and all ones. Tolerance: none."""
+    one = 1 << 24
+    fixed = [0.0, 2.0 ** -25, 2.0 ** -24, 1.5 * 2.0 ** -24, 0.002, 0.2,
+             1.0 - 2.0 ** -24, 1.0]
+    drawn = np.random.default_rng(5).random(1000, dtype=np.float32)
+    drawn[::4] *= 0.002                       # the salt rates' range too
+    s = torch.cat([torch.tensor(fixed, dtype=torch.float32),
+                   torch.from_numpy(drawn)])
+    t = rate_thresholds(torch.stack([s, s], dim=1))
+    assert t.dtype == torch.int64 and tuple(t.shape) == (len(s), 2)
+    assert torch.equal(t[:, 0], t[:, 1])      # the columns differ on NaN only
+    assert t[:8, 0].tolist() == [0, 1, 1, 2, 33555, 3355444, one - 1, one]
+    t = t[:, :1]
+    offs = torch.arange(-2, 3)
+    m = torch.cat([torch.zeros(len(s), 1, dtype=torch.int64), t + offs,
+                   torch.full((len(s), 1), one - 1)], dim=1).clamp(0, one - 1)
+    u = m.to(torch.float32) * (1.0 / one)     # exact, as in noise_uniforms
+    assert torch.equal(u < s[:, None], m < t)
+    assert torch.equal(u >= s[:, None], m >= t)
+    for low in (0, 0xFF):
+        r = (m << 8) | low
+        below = torch.where(t == one, torch.ones_like(m, dtype=torch.bool),
+                            r < (t << 8))
+        assert torch.equal(u < s[:, None], below)
+        assert torch.equal(u >= s[:, None], ~below)
+
+
+def test_nan_and_out_of_range_rates():
+    """A NaN salt rate adds nothing and a NaN pepper rate erases the image,
+    as `u < NaN` and `u >= NaN` are both false; rates outside [0, 1] act
+    as 0 or 1. The thresholds say the same."""
+    nan, inf = float("nan"), float("inf")
+    rates = torch.tensor([[nan, 0.0], [0.0, nan], [-1.0, -0.5], [2.0, 0.0],
+                          [0.5, inf], [inf, 0.25]])
+    one = 1 << 24
+    assert rate_thresholds(rates).tolist() == [
+        [0, 0], [0, one], [0, 0], [one, 0], [1 << 23, one], [one, 1 << 22]]
+    bits = torch.from_numpy(_bits(6, 4, (64, 64)))
+    clean = unpack_bits_plain(bits, torch.float32)
+    got = unpack_noise_plain(bits, rates, 9, torch.float32)
+    assert torch.equal(got[0], clean[0]) and torch.equal(got[2], clean[2])
+    assert not got[1].any() and not got[4].any()
+    assert got[3].all()
+    u1, u2 = noise_uniforms(6, 64 * 8, 9)
+    t = rate_thresholds(rates)
+    m1, m2 = (u1 * one).long(), (u2 * one).long()
+    keep = ((clean.reshape(6, -1) > 0) | (m1 < t[:, :1])) & (m2 >= t[:, 1:])
+    assert torch.equal(keep.reshape(6, 64, 64).float(), got)
+    with pytest.raises(TypeError):
+        rate_thresholds(rates.double())
 
 
 def test_noise_rejects_what_the_kernel_does_not_take():

@@ -18,7 +18,8 @@ from abcnet_tpu.infer import decode as jax_decode
 from abcnet_tpu.ops.pallas_peaks import nms_topk as pallas_nms_topk
 from abcnet_tpu.train.metrics import maxpool2d_same
 from abcnet_tpu_torch.infer import decode
-from abcnet_tpu_torch.ops.peaks import nms_topk
+from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
+                                        nms_topk_plain)
 from torch_parity import NMS_CASES, edge_map, plateau_map, random_maps
 
 
@@ -65,6 +66,31 @@ def test_bf16_input_matches_jax():
                                   np.asarray(jx[0], np.float32))
     for a, b in zip(pt[1:], jx[1:]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_pair_plain_equals_two_calls():
+    """`nms_topk_pair` on CPU tensors is two calls of the plain version,
+    each map with its own k; the decode's pair helper gives the fields of
+    two single calls."""
+    a, b = random_maps((3, 32, 32)), random_maps((3, 32, 32))[:, ::-1].copy()
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    (sa, ia), (sb, ib) = nms_topk_pair(ta, 16, tb, 24, -1.0)
+    for got, want in ((sa, nms_topk_plain(ta, 16, -1.0)[0]),
+                      (ia, nms_topk_plain(ta, 16, -1.0)[1]),
+                      (sb, nms_topk_plain(tb, 24, -1.0)[0]),
+                      (ib, nms_topk_plain(tb, 24, -1.0)[1])):
+        assert torch.equal(got, want)
+    assert tuple(sb.shape) == (3, 24) and ib.dtype == torch.int32
+    pa, pb = decode._topk_logit_peaks_pair(ta, 16, tb, 24, -1.0)
+    for got, want in zip(pa + pb, decode._topk_logit_peaks(ta, 16, -1.0)
+                         + decode._topk_logit_peaks(tb, 24, -1.0)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        nms_topk_pair(ta, 16, tb[:, :16], 24, -1.0)
+    with pytest.raises(ValueError):
+        nms_topk_pair(ta, 16, tb.to(torch.bfloat16), 24, -1.0)
+    with pytest.raises(ValueError):
+        nms_topk_pair(ta, 16, tb, 32 * 32 + 1, -1.0)
 
 
 def test_rejects_bad_arguments():

@@ -120,8 +120,57 @@ def random_maps(shape):
     return np.random.default_rng(0).normal(size=shape).astype(np.float32) * 3
 
 
+def band_seams_map():
+    """128x128, background -5. The CUDA kernel cuts a map into bands of 32
+    rows: 2x2 plateaus and pairs of equal isolated peaks straddle the
+    seams at rows 31/32, 63/64 and 95/96, peaks sit on the seam rows in
+    the first and last column, and a higher cell just across a seam
+    suppresses a candidate on the other side."""
+    m = np.full((2, 128, 128), -5.0, np.float32)
+    for b in range(2):
+        for n, seam in enumerate((32, 64, 96)):
+            c = 10 + 30 * n + b
+            m[b, seam - 1:seam + 1, c:c + 2] = 2.0 + n      # plateau
+            m[b, seam - 1, c + 8] = m[b, seam + 1, c + 8] = 1.5    # equal
+            m[b, seam - 1, 0] = m[b, seam, 127] = 4.0 + n   # edge columns
+            m[b, seam, 0 + 3] = 3.0                         # on a seam row
+            m[b, seam - 1, 60], m[b, seam, 61] = 0.5, 0.75  # suppressed
+    return m
+
+
+def dense_band_map():
+    """More than K isolated peaks in rows 0-31, three stronger elsewhere."""
+    rng = np.random.default_rng(1)
+    m = np.full((2, 128, 128), -5.0, np.float32)
+    m[:, 0:32:2, 0:128:2] = rng.uniform(0, 4, (2, 16, 64)).astype(np.float32)
+    m[:, 40, 40], m[:, 70, 5], m[:, 127, 127] = 9.0, 8.0, 7.0
+    return m
+
+
+def ties_across_bands_map():
+    """One score at cells of every band: the slots order by index."""
+    m = np.full((1, 128, 128), -5.0, np.float32)
+    for r, c in ((120, 3), (5, 100), (64, 64), (33, 0), (31, 127), (96, 7),
+                 (5, 2), (70, 90)):
+        m[0, r, c] = 1.25
+    m[0, 50, 50] = 6.0
+    return m
+
+
+def late_band_only_map():
+    """Fewer than K survivors, all in the last rows: the exhausted slots
+    take the cells at the top of the map."""
+    m = np.full((2, 128, 128), -5.0, np.float32)
+    m[:, 100:128:3, 1:128:9] = np.random.default_rng(2).uniform(
+        0, 3, (2, 10, 15)).astype(np.float32)
+    m[:, 0, 0] = -1.0                  # at the threshold: dropped
+    return m
+
+
 # NMS/top-K cases, those of tests/test_pallas_peaks.py plus exhausted and
-# all-survivor maps: name -> (make maps, k, threshold).
+# all-survivor maps, maps that try the seams between the CUDA kernel's
+# bands of rows, and shapes that take its scalar route: name -> (make
+# maps, k, threshold).
 NMS_CASES = {
     "random_small": (lambda: random_maps((3, 32, 32)), 16, -1.0),
     "random_full": (lambda: random_maps((2, 128, 128)), 128, -1.0),
@@ -129,6 +178,12 @@ NMS_CASES = {
     "edges": (edge_map, 4, 0.5),
     "exhausted": (lambda: np.full((2, 16, 16), -3.0, np.float32), 12, -1.0),
     "constant": (lambda: np.zeros((1, 16, 16), np.float32), 40, -1.0),
+    "band_seams": (band_seams_map, 128, -1.0),
+    "dense_band": (dense_band_map, 128, -1.0),
+    "ties_across_bands": (ties_across_bands_map, 160, -1.0),
+    "late_band_only": (late_band_only_map, 160, -1.0),
+    "odd_shape": (lambda: random_maps((2, 20, 28)), 24, -1.0),
+    "k_equals_n": (lambda: random_maps((2, 8, 8)), 64, -1.0),
 }
 
 
