@@ -4,17 +4,20 @@
         [--epochs 30] [--amount 0.2] [--seed 0] [--ckpt DIR]
         [--dtype bfloat16] [--no-test-split] [--resume DIR]
         [--device cuda]
+    torchrun --nproc-per-node N -m abcnet_tpu_torch train --data DIR ...
     python -m abcnet_tpu_torch img2smiles --data DIR_OR_CSV [--ckpt NPZ]
-        [--out results.csv] [-b 64] [--processes 0] [--threshold 0.6]
-        [--dtype bfloat16] [--device cuda]
+        [--out results.csv] [-b 64] [--processes 0] [--mesh N]
+        [--threshold 0.6] [--dtype bfloat16] [--device cuda]
     python -m abcnet_tpu_torch cal-acc results.csv
 
 The flags are those of abcnet_tpu's CLI (abcnet_tpu/__main__.py:289-308)
 plus --device; --ckpt names a weight snapshot (.npz, default
 snapshots/r5_latest.npz). `train --data DIR` reads DIR/dataset.csv (the
 format the JAX package's `gen` writes); training without --data needs
-the molecule generator, which is not ported yet. Multi-device serving
-(--mesh) is not ported yet.
+the molecule generator, which is not ported yet. Under torchrun `train`
+runs as one rank of a data-parallel job (one process per GPU, -b the
+global batch); `img2smiles --mesh N` shards every batch over N GPUs
+from one process.
 """
 
 from __future__ import annotations
@@ -75,7 +78,10 @@ def img2smiles_loop(run, images: Sequence[np.ndarray], batch_size: int,
 def _cmd_train(args) -> None:
     import random
 
+    import torch
+
     from .data import pipeline
+    from .parallel import init_distributed
     from .train.trainer import (TrainConfig, create_state, fit,
                                 restore_checkpoint)
     from .utils.device import resolve_device
@@ -95,10 +101,13 @@ def _cmd_train(args) -> None:
                       epochs=args.epochs, amount=args.amount,
                       seed=args.seed, ckpt_dir=args.ckpt, dtype=args.dtype,
                       device=args.device)
-    state = None
+    # One rank of a data-parallel job when torchrun started the process.
+    mesh = init_distributed(args.device)
+    state = create_state(cfg, mesh=mesh)
     if args.resume:
-        state = restore_checkpoint(create_state(cfg), args.resume)
-        print(f"resumed from step {state.step}")
+        state = restore_checkpoint(state, args.resume)
+        if mesh.rank == 0:
+            print(f"resumed from step {state.step}")
     samples = pipeline.load_csv_dataset(csv_path)
     n_test = max(len(samples) // 90, 1) if args.test_split else 0
     rng = random.Random(args.seed)
@@ -107,8 +116,13 @@ def _cmd_train(args) -> None:
     test = [pipeline.sample_to_example(s, rng, train=False)
             for s in samples[:n_test]] if n_test else None
     train = samples[n_test:]
-    print(f"training on {len(train)} samples, eval on {n_test}", flush=True)
+    if mesh.rank == 0:
+        print(f"training on {len(train)} samples, eval on {n_test}"
+              + (f", {mesh.world} ranks" if mesh.world > 1 else ""),
+              flush=True)
     fit(cfg, train, test, state=state)
+    if mesh.world > 1:
+        torch.distributed.destroy_process_group()
 
 
 def _cmd_img2smiles(args) -> None:
@@ -129,7 +143,12 @@ def _cmd_img2smiles(args) -> None:
                                 dtype=getattr(torch, args.dtype))
     print(f"weights: {args.ckpt} (step {step})", flush=True)
     images, truths = load_image_csv(csv_path)
-    run = make_infer_pipeline(model, args.device, threshold=args.threshold)
+    mesh = None
+    if args.mesh:
+        from .parallel import make_mesh
+        mesh = make_mesh(args.mesh, args.device)
+    run = make_infer_pipeline(model, args.device, threshold=args.threshold,
+                              mesh=mesh)
     pool = None
     if args.processes and args.processes > 1:
         from .infer.assemble import make_assembly_pool
@@ -186,6 +205,9 @@ def main(argv=None) -> None:
     i.add_argument("--out", default="results.csv")
     i.add_argument("-b", "--batch-size", type=int, default=64)
     i.add_argument("--processes", type=int, default=0)
+    i.add_argument("--mesh", type=int, default=0,
+                   help="shard inference batches over N GPUs (-b must "
+                        "divide by N)")
     i.add_argument("--threshold", type=float, default=0.6,
                    help="binarize threshold (reference: 0.6 synthetic, "
                         "0.2 scanned benchmarks, utils_for_test.py:23)")

@@ -644,20 +644,29 @@ cudaError_t launch_clustered(K kernel, int blocks_x, int maps, int cluster,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// Dynamic shared memory above 48 KB is an opt-in: asked for once per
-// process and kernel, the first time a shape needs it.
+// Dynamic shared memory above 48 KB is an opt-in, and cudaFuncSetAttribute
+// sets it for the current device only: it is asked for once per kernel and
+// device (the host thread's current one, which the wrappers set to the
+// device of the tensors), the first time a shape needs it there.
+constexpr int kMaxDevices = 64;
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, bool* allowed) {
-  if (bytes <= kSmemDefault || *allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+  if (bytes <= kSmemDefault) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemLimit);
-  *allowed = err == cudaSuccess;
+  allowed[dev] = err == cudaSuccess;
   return err;
 }
 
 template <typename T>
 int launch(Params p, int maps, int B, int want, void* stream) {
-  static bool allowed = false;
+  static bool allowed[kMaxDevices] = {};
   size_t bytes;
   const int kmax = maps > 1 && p.job[1].k > p.job[0].k ? p.job[1].k
                                                        : p.job[0].k;
@@ -677,7 +686,7 @@ int launch(Params p, int maps, int B, int want, void* stream) {
   p.vec = p.W % 8 == 0;
   for (int j = 0; j < maps; ++j)
     if (reinterpret_cast<uintptr_t>(p.job[j].logit) % 16) p.vec = 0;
-  cudaError_t err = allow_smem(nms_topk_kernel<T>, bytes, &allowed);
+  cudaError_t err = allow_smem(nms_topk_kernel<T>, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
   err = launch_clustered(nms_topk_kernel<T>, p.cluster * B, maps, p.cluster,
                          bytes, stream, p);
@@ -736,12 +745,12 @@ extern "C" int abcnet_nms_topk(const void* logit_a, int k_a, void* scores_a,
 // The empty kernel in the launch shape abcnet_nms_topk would use.
 extern "C" int abcnet_nms_topk_null(int maps, int B, int H, int W, int kmax,
                                     int cluster, void* stream) {
-  static bool allowed = false;
+  static bool allowed[kMaxDevices] = {};
   int c, rows, kc;
   size_t bytes;
   if (!choose(H, W, kmax, cluster, &c, &rows, &kc, &bytes))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(null_kernel, bytes, &allowed);
+  cudaError_t err = allow_smem(null_kernel, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
   err = launch_clustered(null_kernel, c * B, maps, c, bytes, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());

@@ -25,6 +25,7 @@ Coordinates are (row, col) = (idx // G, idx % G).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Dict, Sequence
@@ -456,7 +457,8 @@ def unpack_peaks_host(ibuf, fbuf, spec) -> Dict[str, np.ndarray]:
 
 def make_infer_pipeline(model, device="cuda",
                         decode_cfg: DecodeConfig = None,
-                        threshold: float = 0.6, sparse: bool = True):
+                        threshold: float = 0.6, sparse: bool = True,
+                        mesh=None, quant: Dict = None):
     """Serving pipeline: uint8 batch (B, 512, 512) -> host peak dict.
 
     Images are binarized and bit-packed on the host; the device unpacks
@@ -465,58 +467,104 @@ def make_infer_pipeline(model, device="cuda",
     (sparse=True, the default) or densely (sparse=False), then packs the
     peak dict into two buffers. Returns run(image_u8) with the halves
     run.dispatch (host prep + device work, no wait) and run.fetch
-    (waits for the copy to pinned host memory, builds the numpy dict;
-    safe on a worker thread)."""
-    dev = resolve_device(device)
+    (waits for the copies to pinned host memory, builds the numpy dict;
+    safe on a worker thread).
+
+    mesh: a single-process `parallel.Mesh` over several devices (the
+    multi-chip batched inference of abcnet_tpu/infer/decode.py:520-622):
+    a replica of the model on each, the batch cut into contiguous row
+    blocks (B must divide by the number of devices), each block's
+    unpack, U-Net, NMS/top-K, sparse heads and pack enqueued on its own
+    device; fetch joins the blocks in row order. Without it the pipeline
+    runs on `device`.
+
+    quant: an int8 bundle from infer.quant.prepare_quant: the backbone
+    becomes the s8 x s8 -> s32 path; peak extraction and the sparse wide
+    heads are unchanged. Sparse mode only."""
+    import copy
+
+    from .quant import forward_quant
+    from .quant import to_device as quant_to_device
+
+    if quant is not None and not sparse:
+        raise ValueError("the int8 backbone serves the sparse pipeline only "
+                         "(sparse=True)")
+    devices = tuple(mesh.devices) if mesh is not None \
+        else (resolve_device(device),)
     cfg = decode_cfg or DecodeConfig()
-    model = model.to(dev).eval()
     dtype = model.dtype
-    heads = sparse_heads(model, dtype) if sparse else None
+    replicas = []
+    for i, dev in enumerate(devices):
+        rep = (model if i == 0 else copy.deepcopy(model)).to(dev).eval()
+        replicas.append((rep, sparse_heads(rep, dtype) if sparse else None,
+                         quant_to_device(quant, dev)
+                         if quant is not None else None))
     spec_cache = {}
 
     @torch.no_grad()
-    def _run(bits: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _run(replica, bits: torch.Tensor) -> Dict[str, torch.Tensor]:
+        rep, heads, qbundle = replica
         images = device_unpack_bits(bits, train=False, dtype=dtype)
-        if sparse:
-            heatmaps, feats = model(images,
-                                    dense_heads=DENSE_HEADS_SPARSE_MODE,
-                                    return_features=True)
-            return extract_peaks_sparse(heatmaps, feats, heads, cfg, dtype)
-        return extract_peaks(model(images), cfg)
+        if not sparse:
+            return extract_peaks(rep(images), cfg)
+        if qbundle is not None:
+            heatmaps, feats = forward_quant(qbundle, images)
+        else:
+            heatmaps, feats = rep(images,
+                                  dense_heads=DENSE_HEADS_SPARSE_MODE,
+                                  return_features=True)
+        return extract_peaks_sparse(heatmaps, feats, heads, cfg, dtype)
 
     def dispatch(image_u8):
-        """Async half: pack on the host, copy the bits to the device,
-        enqueue the device work and the copy of the two peak buffers to
-        pinned host memory. Returns a handle for `fetch`."""
+        """Async half: pack on the host, copy each row block to its
+        device, enqueue the device work and the copies of the peak
+        buffers into pinned host memory. Returns a handle for `fetch`."""
         bits = torch.from_numpy(pack_images(np.asarray(image_u8), threshold))
-        if dev.type == "cuda":
-            bits = bits.pin_memory().to(dev, non_blocking=True)
-        peaks = _run(bits)
-        if "spec" not in spec_cache:
-            spec_cache["spec"] = peaks_spec(peaks)
-        ibuf, fbuf = pack_peaks(peaks)
-        if dev.type != "cuda":
-            return ibuf, fbuf, None
-        hi = torch.empty(ibuf.shape, dtype=ibuf.dtype, pin_memory=True)
-        hf = torch.empty(fbuf.shape, dtype=fbuf.dtype, pin_memory=True)
-        hi.copy_(ibuf, non_blocking=True)
-        hf.copy_(fbuf, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return hi, hf, done
+        if bits.shape[0] % len(devices):
+            raise ValueError(f"batch {bits.shape[0]} does not divide over "
+                             f"{len(devices)} devices")
+        if devices[0].type == "cuda":
+            bits = bits.pin_memory()
+        blocks = bits.chunk(len(devices))
+        parts, done = [], []
+        for replica, dev, block in zip(replicas, devices, blocks):
+            with torch.cuda.device(dev) if dev.type == "cuda" \
+                    else contextlib.nullcontext():
+                peaks = _run(replica, block.to(dev, non_blocking=True))
+                if "spec" not in spec_cache:
+                    spec_cache["spec"] = peaks_spec(peaks)
+                ibuf, fbuf = pack_peaks(peaks)
+                if dev.type != "cuda":
+                    parts.append((ibuf, fbuf))
+                    continue
+                hi = torch.empty(ibuf.shape, dtype=ibuf.dtype,
+                                 pin_memory=True)
+                hf = torch.empty(fbuf.shape, dtype=fbuf.dtype,
+                                 pin_memory=True)
+                hi.copy_(ibuf, non_blocking=True)
+                hf.copy_(fbuf, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                parts.append((hi, hf))
+                done.append(event)
+        return parts, done
 
     def fetch(handle):
-        """Blocking half: wait for the copies, return the host peak dict.
-        The wait releases the interpreter lock, so a fetch thread
-        overlaps the main thread's dispatch and assembly."""
-        hi, hf, done = handle
-        if done is not None:
-            done.synchronize()
-        return unpack_peaks_host(hi.numpy(), hf.numpy(), spec_cache["spec"])
+        """Blocking half: wait for the copies, return the host peak dict
+        with the blocks' rows in order. The waits release the interpreter
+        lock, so a fetch thread overlaps the main thread's dispatch and
+        assembly."""
+        parts, done = handle
+        for event in done:
+            event.synchronize()
+        hi = np.concatenate([i.numpy() for i, _ in parts])
+        hf = np.concatenate([f.numpy() for _, f in parts])
+        return unpack_peaks_host(hi, hf, spec_cache["spec"])
 
     def run(image_u8):
         return fetch(dispatch(image_u8))
 
     run.dispatch = dispatch
     run.fetch = fetch
+    run.devices = devices
     return run

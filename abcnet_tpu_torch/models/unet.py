@@ -24,15 +24,36 @@ uses the unbiased one). Dropout in the heads draws its keep mask from
 the `generator` handed to `forward`, after the cast to the compute
 dtype, so a training run is reproducible from its generator and never
 touches the global CUDA stream.
+
+Data parallel: `BatchNorm.group` (set on every BatchNorm of a model by
+`parallel.sync_batchnorm`) is the process group of a data-parallel run.
+In train mode with more than one rank the batch statistics are those of
+the *global* batch (what the JAX package's SPMD step computes over its
+mesh), and the backward all-reduces the two sums it needs; every rank
+ends with the same running statistics.
+
+Options of the JAX module (abcnet_tpu/models/unet.py:138-151):
+`fused_head_bank=True` computes the eight OutConv 3x3 convs as one conv
+of 128·n channels and one BatchNorm over them, then the per-head 1x1s
+on the slices (models/fuse_heads.py converts weights both ways);
+`remat_blocks` names blocks ("inc1" .. "dconv2", "heads") whose
+activations are recomputed in the backward instead of kept
+(torch.utils.checkpoint, non-reentrant). A recomputation neither moves
+the BatchNorm running statistics a second time nor draws a new dropout
+mask.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+import threading
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 PRODUCTION_HEADS: Tuple[int, ...] = (1, 14, 3, 2, 1, 360, 60, 60)
 
@@ -41,6 +62,71 @@ HEAD_NAMES = ("atom_target", "atom_type", "atom_charge", "atom_hs",
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1        # flax momentum 0.9 (the weight of the old value)
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """Marks the forward that torch.utils.checkpoint runs again in the
+    backward (on the autograd thread, so the mark is thread-local)."""
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = False
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a process group.
+
+    Forward: each rank's (count, mean, biased variance) per channel, f32,
+    one all_gather, then the pooled mean and variance (the counts weight
+    the means, and the spread of the means is added to the variances, so
+    no E[x^2] - E[x]^2 cancellation). Backward: the per-channel sums of dy
+    and dy·x̂ are all-reduced, and
+
+        dx = γ/σ · (dy - Σdy/N - x̂ · Σ(dy·x̂)/N)
+
+    with N the global count. The weight and bias gradients stay this
+    rank's sums; the gradient all-reduce of the trainer adds them up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype,
+                           device=x.device)
+        mine = torch.cat([count, mean_l, var_l])
+        parts = [torch.empty_like(mine)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, mine, group=group)
+        g = torch.stack(parts)
+        counts, means, vars_ = g[:, :1], g[:, 1:c + 1], g[:, c + 1:]
+        n = counts.sum()
+        mean = (counts * means).sum(0) / n
+        var = (counts * (vars_ + (means - mean) ** 2)).sum(0) / n
+        invstd = torch.rsqrt(var + eps)
+        out = (x - mean[:, None, None]) * (invstd * weight)[:, None, None] \
+            + bias[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var, n)
+        return out, mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dn):
+        x, weight, mean, invstd = ctx.saved_tensors
+        xhat = (x - mean[:, None, None]) * invstd[:, None, None]
+        sums = torch.cat([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
+        local = sums.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        c = x.shape[1]
+        g_dy, g_dyx = sums[:c] / ctx.n, sums[c:] / ctx.n
+        dx = (weight * invstd)[:, None, None] * (
+            dy - g_dy[:, None, None] - xhat * g_dyx[:, None, None])
+        return dx, local[c:], local[:c], None, None
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -53,26 +139,62 @@ class BatchNorm(nn.BatchNorm2d):
 
     with the biased batch variance, as flax.linen.BatchNorm(momentum=0.9)
     does (abcnet_tpu/models/unet.py:45-46). torch's own update would use
-    the unbiased variance, n/(n-1) larger. F.batch_norm is therefore
-    given zeroed scratch buffers and momentum 1, which leaves the batch
-    mean and the unbiased batch variance in them without another pass
-    over the activation; the variance is scaled back by (n-1)/n."""
+    the unbiased variance, n/(n-1) larger. On one rank F.batch_norm is
+    therefore given zeroed scratch buffers and momentum 1, which leaves
+    the batch mean and the unbiased batch variance in them without
+    another pass over the activation; the variance is scaled back by
+    (n-1)/n. With a process group of more than one rank (`group`), the
+    batch is the global one (`_GlobalBatchNorm`)."""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                           self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_mean.mul_(1 - self.momentum).add_(
-                mean, alpha=self.momentum)
-            self.running_var.mul_(1 - self.momentum).add_(
-                var, alpha=self.momentum * (n - 1) / n)
+        if self.group is not None and dist.get_world_size(self.group) > 1:
+            out, mean, var, _ = _GlobalBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, self.group)
+            unbias = 1.0
+        else:
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.zeros_like(self.running_var)
+            out = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                               1.0, self.eps)
+            n = x.numel() // x.shape[1]
+            unbias = (n - 1) / n
+        if not getattr(_RECOMPUTE, "active", False):
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    mean, alpha=self.momentum)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    var, alpha=self.momentum * unbias)
         return out
+
+
+def remat(fn: Callable, *args, generator: Optional[torch.Generator] = None):
+    """fn(*args, generator) with its activations recomputed in the
+    backward (torch.utils.checkpoint, non-reentrant). The recomputation
+    leaves the BatchNorm running statistics alone and draws dropout from
+    a copy of `generator` in the state the first run found, so it
+    repeats the first run exactly. Outside autograd fn runs plainly."""
+    if not torch.is_grad_enabled():
+        return fn(*args, generator)
+    state = generator.get_state() if generator is not None else None
+    runs = []
+
+    def run(*a):
+        if not runs:
+            runs.append(1)
+            return fn(*a, generator)
+        gen = None
+        if generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        with _recomputing():
+            return fn(*a, gen)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
@@ -136,12 +258,27 @@ class Up(nn.Module):
                                      stride=2)
         self.double_conv = DoubleConv(skip + in_features // 2, out_features)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
+    def upsample(self, x: torch.Tensor, skip: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+        """The transposed conv, cropped to the skip and concatenated."""
         x = _conv(self.up, x, dtype, transpose=True)
         x = _crop_or_pad_to(x, skip.shape[2], skip.shape[3])
-        x = torch.cat([skip, x.to(skip.dtype)], dim=1)
-        return self.double_conv(x, dtype)
+        return torch.cat([skip, x.to(skip.dtype)], dim=1)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        return self.double_conv(self.upsample(x, skip, dtype), dtype)
+
+
+def _dropout(x: torch.Tensor, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout at rate OutConv.DROP in train mode: a keep mask (p = 1 -
+    DROP, survivors scaled by 1/(1 - DROP)) drawn from `generator`."""
+    if not training:
+        return x
+    drop = OutConv.DROP
+    keep = torch.empty_like(x).bernoulli_(1 - drop, generator=generator)
+    return x * keep.mul_(1.0 / (1 - drop))          # 0 or 1.25, exact
 
 
 class OutConv(nn.Module):
@@ -162,35 +299,42 @@ class OutConv(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         x = self.bn0(_conv(self.conv0, x, dtype).float())
-        x = F.leaky_relu(x, 0.01).to(dtype)
-        if self.training:
-            keep = torch.empty_like(x).bernoulli_(1 - self.DROP,
-                                                  generator=generator)
-            x = x * keep.mul_(1.0 / (1 - self.DROP))   # 0 or 1.25, exact
+        x = _dropout(F.leaky_relu(x, 0.01).to(dtype), self.training,
+                     generator)
         return _conv(self.conv1, x, dtype)
 
 
-class UNet(nn.Module):
-    """Production multi-head U-Net.
+def head_names(heads: Sequence[int]) -> Tuple[str, ...]:
+    return (HEAD_NAMES if len(heads) == len(HEAD_NAMES)
+            else tuple(f"head{i}" for i in range(len(heads))))
 
-    forward(x) takes NHWC images (B, 512, 512, 1) and returns a dict
-    head name -> (B, 128, 128, width) logits in `dtype`."""
 
-    def __init__(self, heads: Sequence[int] = PRODUCTION_HEADS,
-                 dtype: torch.dtype = torch.float32):
+class _Trunk(nn.Module):
+    """What the production U-Net and its space-to-depth variant share:
+    the learned uncertainty weights, the encoder from the 64-channel
+    level (x3) down, the decoder, the two trailing DoubleConvs and the
+    heads. A subclass builds its stem in `build_stem` (registered right
+    after `s`, so parameters keep the order of the JAX module's tree) and
+    maps the NCHW input to x3 in `stem`."""
+
+    BLOCKS = ("down3", "down4", "down5", "up1", "up2", "up3", "dconv1",
+              "dconv2")
+
+    def __init__(self, heads: Sequence[int], dtype: torch.dtype,
+                 fused_head_bank: bool = False,
+                 remat_blocks: Sequence[str] = ()):
         super().__init__()
         self.heads = tuple(heads)
         self.dtype = dtype
-        self.head_names = (HEAD_NAMES if len(self.heads) == len(HEAD_NAMES)
-                           else tuple(f"head{i}"
-                                      for i in range(len(self.heads))))
+        self.head_names = head_names(self.heads)
+        self.fused_head_bank = fused_head_bank
+        self.remat_blocks = frozenset(remat_blocks)
         # Learned homoscedastic uncertainty weights (unet.py:82).
         self.s = nn.Parameter(torch.randn(10) / 100.0)
-        self.inc1 = DoubleConv(1, 16)
-        self.inc2 = DoubleConv(16, 16)
-        self.down1 = Down(16, 32)
-        self.down2 = Down(32, 64)
-        self.inc3 = DoubleConv(64, 64)
+        self.build_stem()
+        unknown = self.remat_blocks - set(self.BLOCKS) - {"heads"}
+        if unknown:
+            raise ValueError(f"remat_blocks: no block {sorted(unknown)}")
         self.down3 = Down(64, 128)
         self.down4 = Down(128, 256)
         self.down5 = Down(256, 512)
@@ -199,11 +343,52 @@ class UNet(nn.Module):
         self.up3 = Up(128, 128, skip=64)
         self.dconv1 = DoubleConv(128, 128)
         self.dconv2 = DoubleConv(128, 128)
-        for name, width in zip(self.head_names, self.heads):
-            self.add_module(f"out_{name}", OutConv(128, width))
+        if fused_head_bank:
+            n = len(self.heads)
+            self.head_bank = nn.Conv2d(128, 128 * n, 3, padding=1)
+            self.head_bank_bn = BatchNorm(128 * n, BN_EPS, BN_MOMENTUM)
+            for name, width in zip(self.head_names, self.heads):
+                self.add_module(f"out1_{name}", nn.Conv2d(128, width, 1))
+        else:
+            for name, width in zip(self.head_names, self.heads):
+                self.add_module(f"out_{name}", OutConv(128, width))
 
     def head(self, name: str) -> OutConv:
+        if self.fused_head_bank:
+            raise ValueError("a fused head bank has no per-head OutConv: "
+                             "convert the weights with "
+                             "models.fuse_heads.unfuse_head_variables")
         return getattr(self, f"out_{name}")
+
+    def build_stem(self) -> None:
+        raise NotImplementedError
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _block(self, name: str, fn: Callable, *args):
+        """A block's forward, rematerialized if `name` is listed."""
+        if name in self.remat_blocks:
+            return remat(lambda *a: fn(*a[:-1]), *args)
+        return fn(*args)
+
+    def _down(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        # As in the JAX module, remat covers a Down's DoubleConv, not its
+        # max pool, and an Up's DoubleConv, not its transposed conv.
+        block = getattr(self, name)
+        return self._block(name, lambda t: block.double_conv(t, self.dtype),
+                           F.max_pool2d(x, 2))
+
+    def _up(self, name: str, x: torch.Tensor,
+            skip: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name)
+        x = block.upsample(x, skip, self.dtype)
+        return self._block(name, lambda t: block.double_conv(t, self.dtype),
+                           x)
+
+    def _dc(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name)
+        return self._block(name, lambda t: block(t, self.dtype), x)
 
     def forward(self, x: torch.Tensor, dense_heads: Sequence[str] = None,
                 return_features: bool = False,
@@ -214,26 +399,74 @@ class UNet(nn.Module):
         the other heads only at peak cells (infer/decode.py). generator:
         the source of the heads' dropout masks in train mode."""
         dt = self.dtype
-        x = x.permute(0, 3, 1, 2).to(dt)
-        x1 = self.inc2(self.inc1(x, dt), dt)
-        x2 = self.down1(x1, dt)
-        x3 = self.inc3(self.down2(x2, dt), dt)
-        x4 = self.down3(x3, dt)
-        x5 = self.down4(x4, dt)
-        x6 = self.down5(x5, dt)
-        y = self.up1(x6, x5, dt)
-        y = self.up2(y, x4, dt)
-        y = self.up3(y, x3, dt)
-        y = self.dconv2(self.dconv1(y, dt), dt)
+        x3 = self.stem(x.permute(0, 3, 1, 2).to(dt))
+        x4 = self._down("down3", x3)
+        x5 = self._down("down4", x4)
+        x6 = self._down("down5", x5)
+        y = self._up("up1", x6, x5)
+        y = self._up("up2", y, x4)
+        y = self._up("up3", y, x3)
+        y = self._dc("dconv2", self._dc("dconv1", y))
 
-        out: Dict[str, torch.Tensor] = {}
-        for name in self.head_names:
-            if dense_heads is not None and name not in dense_heads:
-                continue
-            out[name] = self.head(name)(y, dt, generator).permute(0, 2, 3, 1)
+        names = [n for n in self.head_names
+                 if dense_heads is None or n in dense_heads]
+        if self.fused_head_bank:
+            heads = self._fused_heads(y, names, generator)
+        else:
+            heads = {}
+            for name in names:
+                head = self.head(name)
+                if "heads" in self.remat_blocks:
+                    heads[name] = remat(lambda t, g, h=head: h(t, dt, g), y,
+                                        generator=generator)
+                else:
+                    heads[name] = head(y, dt, generator)
+        out = {n: v.permute(0, 2, 3, 1) for n, v in heads.items()}
         if return_features:
             return out, y.permute(0, 2, 3, 1)
         return out
+
+    def _fused_heads(self, y, names, generator):
+        """One 3x3 conv of 128·n channels, one BatchNorm over them,
+        LeakyReLU, dropout, then each head's 1x1 on its 128 channels
+        (unet.py:169-185 of the JAX package)."""
+        dt = self.dtype
+        yb = self.head_bank_bn(_conv(self.head_bank, y, dt).float())
+        yb = _dropout(F.leaky_relu(yb, 0.01).to(dt), self.training,
+                      generator)
+        # One split, not n slices: its backward is a single concatenation
+        # of the heads' gradients, where a slice's backward writes a zero
+        # tensor of the whole bank for each head.
+        parts = dict(zip(self.head_names, yb.split(128, dim=1)))
+        return {n: _conv(getattr(self, f"out1_{n}"), parts[n], dt)
+                for n in names}
+
+
+class UNet(_Trunk):
+    """Production multi-head U-Net.
+
+    forward(x) takes NHWC images (B, 512, 512, 1) and returns a dict
+    head name -> (B, 128, 128, width) logits in `dtype`."""
+
+    BLOCKS = ("inc1", "inc2", "down1", "down2", "inc3") + _Trunk.BLOCKS
+
+    def __init__(self, heads: Sequence[int] = PRODUCTION_HEADS,
+                 dtype: torch.dtype = torch.float32,
+                 fused_head_bank: bool = False,
+                 remat_blocks: Sequence[str] = ()):
+        super().__init__(heads, dtype, fused_head_bank, remat_blocks)
+
+    def build_stem(self) -> None:
+        self.inc1 = DoubleConv(1, 16)
+        self.inc2 = DoubleConv(16, 16)
+        self.down1 = Down(16, 32)
+        self.down2 = Down(32, 64)
+        self.inc3 = DoubleConv(64, 64)
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self._dc("inc2", self._dc("inc1", x))
+        x2 = self._down("down1", x1)
+        return self._dc("inc3", self._down("down2", x2))
 
 
 def param_count(model: nn.Module) -> int:

@@ -1,4 +1,4 @@
-"""Flax variable trees <-> the port's UNet state_dict, and snapshot I/O.
+"""Flax variable trees <-> the port's model state_dicts, and snapshot I/O.
 
 Plays the role of scripts/snapshot_weights.py:60-68 (`_unflatten`) and
 the snapshot fallback of bench.py:303-318. A snapshot is an .npz of
@@ -6,14 +6,20 @@ flattened Flax variables, `params/<block>/.../Conv_i/kernel` (HWIO) and
 `batch_stats/<block>/.../BatchNorm_i/{mean,var}`, stored f16 or f32,
 plus `__step__`.
 
-Name mapping: Conv_i -> conv{i}, BatchNorm_i -> bn{i}, DoubleConv_0 ->
-double_conv, ConvTranspose_0 -> up; kernel/scale -> weight, mean/var ->
-running_mean/running_var. Kernels: a conv's HWIO kernel becomes OIHW;
-a transposed conv's (3, 3, in, out) kernel becomes (in, out, 3, 3)
-flipped on both spatial axes, because Flax's ConvTranspose correlates
-the dilated input with the kernel as stored while torch's ConvTranspose2d
-uses the flipped kernel. `to_flax` is the exact inverse of `from_flax`,
-and `save_snapshot` writes the same .npz key layout (f32 arrays), so
+Every layout of the JAX package's models maps: the production UNet, its
+fused head bank (`head_bank`, `head_bank_bn`, `out1_<head>`), the
+space-to-depth UNetS2D (`stem1`, `stem2`) and UNetCBAM. Name mapping:
+Conv_i -> conv{i}, BatchNorm_i -> bn{i}, Dense_i -> dense{i},
+DoubleConv_0 -> double_conv, DoubleConvCBAM_0 -> double_conv_cbam,
+ConvTranspose_0 -> up, CBAM_0 -> cbam, ChannelAttention_0 -> channel,
+SpatialAttention_0 -> spatial; kernel/scale -> weight, mean/var ->
+running_mean/running_var. Kernels: a conv's HWIO kernel becomes OIHW; a
+Dense kernel (in, out) becomes the Linear weight (out, in); a transposed
+conv's (3, 3, in, out) kernel becomes (in, out, 3, 3) flipped on both
+spatial axes, because Flax's ConvTranspose correlates the dilated input
+with the kernel as stored while torch's ConvTranspose2d uses the flipped
+kernel. `to_flax` is the exact inverse of `from_flax`, and
+`save_snapshot` writes the same .npz key layout (f32 arrays), so
 weights move both ways between the two packages.
 """
 
@@ -26,21 +32,44 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .unet import UNet
+from .unet import HEAD_NAMES, UNet
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 
 
+_MODULES = {"DoubleConv_0": "double_conv",
+            "DoubleConvCBAM_0": "double_conv_cbam",
+            "ConvTranspose_0": "up", "CBAM_0": "cbam",
+            "ChannelAttention_0": "channel",
+            "SpatialAttention_0": "spatial"}
+_NUMBERED = (("Conv_", "conv"), ("BatchNorm_", "bn"), ("Dense_", "dense"))
+
+
 def _module_name(flax_name: str) -> str:
-    if flax_name == "DoubleConv_0":
-        return "double_conv"
-    if flax_name == "ConvTranspose_0":
-        return "up"
-    for prefix, short in (("Conv_", "conv"), ("BatchNorm_", "bn")):
+    if flax_name in _MODULES:
+        return _MODULES[flax_name]
+    for prefix, short in _NUMBERED:
         if flax_name.startswith(prefix):
             return short + flax_name[len(prefix):]
     return flax_name
+
+
+def _flax_name(module_name: str) -> str:
+    for flax, short in _MODULES.items():
+        if module_name == short:
+            return flax
+    for prefix, short in _NUMBERED:
+        if module_name.startswith(short) and \
+                module_name[len(short):].isdigit():
+            return prefix + module_name[len(short):]
+    return module_name
+
+
+def _is_bn(module_name: str) -> bool:
+    """Whether a torch module's `weight` is a BatchNorm scale."""
+    return module_name == "head_bank_bn" or (
+        module_name.startswith("bn") and module_name[2:].isdigit())
 
 
 def _flatten(tree, prefix=()):
@@ -63,8 +92,9 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
 
 
 def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
-    """Flax `params` and `batch_stats` trees (numpy leaves) -> a state_dict
-    for `UNet` with f32 tensors."""
+    """Flax `params` and `batch_stats` trees (numpy leaves) of any of the
+    JAX package's models -> a state_dict with f32 tensors for the port's
+    model of the same layout (`model_for_tree` builds it)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, v in list(_flatten(params)) + list(_flatten(batch_stats)):
         if path == ("s",):
@@ -74,6 +104,8 @@ def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             if mods[-1] == "ConvTranspose_0":
                 v = v[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif mods[-1].startswith("Dense_"):
+                v = v.T
             else:
                 v = v.transpose(3, 2, 0, 1)
         name = ".".join([_module_name(m) for m in mods] + [_LEAF[leaf]])
@@ -84,21 +116,10 @@ def from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _flax_name(module_name: str) -> str:
-    if module_name == "double_conv":
-        return "DoubleConv_0"
-    if module_name == "up":
-        return "ConvTranspose_0"
-    for short, prefix in (("conv", "Conv_"), ("bn", "BatchNorm_")):
-        if module_name.startswith(short) and \
-                module_name[len(short):].isdigit():
-            return prefix + module_name[len(short):]
-    return module_name
-
-
 def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
-    """A `UNet` state_dict -> Flax (`params`, `batch_stats`) trees with
-    numpy f32 leaves; the inverse of `from_flax`."""
+    """A state_dict of any of the port's models -> Flax (`params`,
+    `batch_stats`) trees with numpy f32 leaves; the inverse of
+    `from_flax`."""
     flat_p: Dict[str, np.ndarray] = {}
     flat_s: Dict[str, np.ndarray] = {}
     for name, t in state_dict.items():
@@ -110,10 +131,11 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         if leaf == "num_batches_tracked":
             continue
         path = [_flax_name(m) for m in mods]
-        is_bn = path[-1].startswith("BatchNorm_")
-        if leaf == "weight" and not is_bn:
+        if leaf == "weight" and not _is_bn(mods[-1]):
             if path[-1] == "ConvTranspose_0":
                 v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif path[-1].startswith("Dense_"):
+                v = v.T
             else:
                 v = v.transpose(2, 3, 1, 0)
             flax_leaf = "kernel"
@@ -125,7 +147,31 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     return _unflatten(flat_p), _unflatten(flat_s)
 
 
-def save_snapshot(model: UNet, path: str, step: int = 0) -> str:
+def model_for_tree(params: Dict, dtype: torch.dtype = torch.float32
+                   ) -> torch.nn.Module:
+    """A fresh port model whose layout is that of the Flax `params` tree:
+    UNetCBAM (CBAM blocks), UNetS2D (a `stem1`), UNet with a fused head
+    bank (`head_bank`) or the production UNet."""
+    from .unet_cbam import UNetCBAM
+    from .unet_s2d import UNetS2D
+
+    width = {}
+    for k, v in params.items():
+        if k.startswith("out_"):
+            width[k[4:]] = int(v["Conv_1"]["bias"].shape[0])
+        elif k.startswith("out1_"):
+            width[k[5:]] = int(v["bias"].shape[0])
+    names = (HEAD_NAMES if set(width) == set(HEAD_NAMES) else
+             [f"head{i}" for i in range(len(width))])
+    heads = tuple(width[n] for n in names)
+    if "CBAM_0" in params.get("inc1", {}):
+        return UNetCBAM(heads, dtype)
+    if "stem1" in params:
+        return UNetS2D(heads, dtype)
+    return UNet(heads, dtype, fused_head_bank="head_bank" in params)
+
+
+def save_snapshot(model: torch.nn.Module, path: str, step: int = 0) -> str:
     """Write `model`'s weights as a snapshot .npz in the key layout of
     scripts/snapshot_weights.py:89-107 (`params/...`, `batch_stats/...`,
     `__step__`), every array f32. `load_snapshot` here and the JAX
@@ -143,14 +189,15 @@ def save_snapshot(model: UNet, path: str, step: int = 0) -> str:
 
 
 def load_snapshot(path: str, device="cuda",
-                  dtype: torch.dtype = torch.bfloat16) -> Tuple[UNet, int]:
-    """Read a weight snapshot (e.g. snapshots/r5_latest.npz), upcast every
-    array to f32 master weights, and return (model in eval mode on
-    `device` with compute dtype `dtype`, training step)."""
+                  dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[torch.nn.Module, int]:
+    """Read a weight snapshot (e.g. snapshots/r5_latest.npz) of any layout,
+    upcast every array to f32 master weights, and return (model in eval
+    mode on `device` with compute dtype `dtype`, training step)."""
     dev = resolve_device(device)
     z = np.load(path)
     step = int(z["__step__"])
     tree = _unflatten({k: z[k] for k in z.files if k != "__step__"})
-    model = UNet(dtype=dtype)
+    model = model_for_tree(tree["params"], dtype)
     model.load_state_dict(from_flax(tree["params"], tree["batch_stats"]))
     return model.to(dev).eval(), step

@@ -18,6 +18,13 @@ Two bond-type implementations:
     over bond types has no negative term, so the dense tensor never
     needs to exist.
 
+Every term is a ratio of two sums, a numerator and a denominator that
+depends on the targets only. In a data-parallel run (`group` of more
+than one rank) the denominators are summed over the ranks first, so
+each rank's term is its share num_r / Σ den of the global ratio: the
+shares add up to the loss of the global batch, and so do their
+gradients (the trainer sums them).
+
 PyTorch runs eagerly, so nothing deletes an activation that no loss
 reads: `activations` therefore computes only the heads it is asked for.
 The f32 softmax over bond_type alone is (64,128,128,6,60) = 1.5 GB at
@@ -27,10 +34,11 @@ never built.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..data import vocab
@@ -72,41 +80,54 @@ def activations(preds: Dict[str, torch.Tensor],
     return out
 
 
-def heatmap_focal(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+# A term's parts: (numerator, summed denominator, how the summed
+# denominator becomes the divisor).
+Parts = Tuple[torch.Tensor, torch.Tensor, Callable]
+
+
+def _floor(v: float) -> Callable:
+    return lambda d: torch.clamp(d, min=v)
+
+
+def _heatmap_parts(p: torch.Tensor, t: torch.Tensor) -> Parts:
     """CenterNet penalty-reduced focal (train.py:107-108)."""
     pos = (t == 1.0).to(p.dtype)
-    loss = torch.sum(-pos * (1 - p) ** 2 * torch.log(p)
-                     - (1 - t) ** 4 * p ** 2 * torch.log(1 - p))
-    return loss / torch.clamp(torch.sum(pos), min=1.0)
+    num = torch.sum(-pos * (1 - p) ** 2 * torch.log(p)
+                    - (1 - t) ** 4 * p ** 2 * torch.log(1 - p))
+    return num, torch.sum(pos), _floor(1.0)
 
 
-def class_focal(p: torch.Tensor, t: torch.Tensor, weights=None,
-                denom_eps: float = 0.0) -> torch.Tensor:
+def _class_parts(p: torch.Tensor, t: torch.Tensor, weights=None,
+                 denom_eps: float = 0.0) -> Parts:
     """Focal CE -w t (1-p)^2 log p / (sum t + eps)  (train.py:109-114);
     without eps the denominator is max(sum t, 1e-6)."""
     term = -t * (1 - p) ** 2 * torch.log(p)
     if weights is not None:
         term = term * weights
-    denom = (torch.sum(t) + denom_eps if denom_eps
-             else torch.clamp(torch.sum(t), min=1e-6))
-    return torch.sum(term) / denom
+    finish = (lambda d: d + denom_eps) if denom_eps else _floor(1e-6)
+    return torch.sum(term), torch.sum(t), finish
 
 
-def omega_focal(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def _omega_parts(p: torch.Tensor, t: torch.Tensor) -> Parts:
     """Circular multi-label focal BCE, masked to bond cells via per-cell
     omega mass (train.py:124-125). p, t: (B, H, W, 60)."""
     mass = torch.sum(t, dim=-1, keepdim=True)
     pos = (t == 1.0).to(p.dtype)
     inner = (pos * (1 - p) ** 2 * torch.log(p)
              + (1 - t) ** 4 * p ** 2 * torch.log(1 - p))
-    return -torch.sum(mass * inner) / torch.clamp(torch.sum(t), min=1e-6)
+    return -torch.sum(mass * inner), torch.sum(t), _floor(1e-6)
 
 
-def rho_l1(pred: torch.Tensor, rho_t: torch.Tensor,
-           mass: torch.Tensor) -> torch.Tensor:
+def _rho_parts(pred: torch.Tensor, rho_t: torch.Tensor,
+               mass: torch.Tensor) -> Parts:
     """Masked L1 (train.py:121); mass = sum over classes of bond_type."""
-    return torch.sum(torch.abs(pred - rho_t) * mass) / torch.clamp(
-        torch.sum(mass), min=1e-6)
+    return (torch.sum(torch.abs(pred - rho_t) * mass), torch.sum(mass),
+            _floor(1e-6))
+
+
+def _ratio(parts: Parts) -> torch.Tensor:
+    num, den, finish = parts
+    return num / finish(den)
 
 
 _ATOM_W = np.asarray(vocab.ATOM_TYPE_WEIGHTS, np.float32)
@@ -139,40 +160,48 @@ def _to_nhwc_targets(targets: Dict[str, torch.Tensor]
 def compute_losses(preds: Dict[str, torch.Tensor],
                    targets: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor] = None,
-                   fused_bond_type: bool = True) -> Dict[str, torch.Tensor]:
+                   fused_bond_type: bool = True,
+                   group=None) -> Dict[str, torch.Tensor]:
     """All eight loss terms. `targets` are scatter-built channel-first
     maps; `batch` (compact labels) is required for the fused bond-type
-    path."""
+    path. With a process group of more than one rank, each term is this
+    rank's share of the global batch's term (one all-reduce of the eight
+    denominators)."""
     act = activations(preds, [n for n in HEAD_NAMES
                               if not (fused_bond_type and n == "bond_type")])
     t = _to_nhwc_targets(targets)
     atom_w = torch.from_numpy(_ATOM_W).to(act["atom_type"].device)
 
-    losses = {}
-    losses["atom_target"] = heatmap_focal(act["atom_target"],
-                                          t["atom_target"])
-    losses["bond_target"] = heatmap_focal(act["bond_target"],
-                                          t["bond_target"])
-    losses["atom_type"] = class_focal(act["atom_type"], t["atom_type"],
-                                      weights=atom_w)
-    losses["atom_charge"] = class_focal(act["atom_charge"], t["atom_charge"])
-    losses["atom_hs"] = class_focal(act["atom_hs"], t["atom_hs"],
-                                    denom_eps=0.1)
-    losses["bond_omega"] = omega_focal(act["bond_omega"], t["bond_omega"])
-    losses["bond_rho"] = rho_l1(act["bond_rho"], t["bond_rho"],
-                                t["bond_type_mass"])
+    parts = {
+        "atom_target": _heatmap_parts(act["atom_target"], t["atom_target"]),
+        "bond_target": _heatmap_parts(act["bond_target"], t["bond_target"]),
+        "atom_type": _class_parts(act["atom_type"], t["atom_type"],
+                                  weights=atom_w),
+        "atom_charge": _class_parts(act["atom_charge"], t["atom_charge"]),
+        "atom_hs": _class_parts(act["atom_hs"], t["atom_hs"],
+                                denom_eps=0.1),
+        "bond_omega": _omega_parts(act["bond_omega"], t["bond_omega"]),
+        "bond_rho": _rho_parts(act["bond_rho"], t["bond_rho"],
+                               t["bond_type_mass"]),
+    }
     if fused_bond_type:
         if batch is None:
             raise ValueError("the fused bond-type loss needs the compact "
                              "labels (batch)")
-        losses["bond_type"] = fused_bond_type_loss(preds["bond_type"], batch)
+        parts["bond_type"] = _fused_bond_type_parts(preds["bond_type"],
+                                                    batch)
     else:
-        losses["bond_type"] = class_focal(act["bond_type"], t["bond_type"])
-    return losses
+        parts["bond_type"] = _class_parts(act["bond_type"], t["bond_type"])
+    if group is None or dist.get_world_size(group) == 1:
+        return {k: _ratio(v) for k, v in parts.items()}
+    dens = torch.stack([d.detach().float() for _, d, _ in parts.values()])
+    dist.all_reduce(dens, group=group)
+    return {k: num / finish(d) for (k, (num, _, finish)), d
+            in zip(parts.items(), dens)}
 
 
-def fused_bond_type_loss(bond_type_logits: torch.Tensor,
-                         batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _fused_bond_type_parts(bond_type_logits: torch.Tensor,
+                           batch: Dict[str, torch.Tensor]) -> Parts:
     """Gather-based focal CE over bond types.
 
     The dense loss is -sum t (1-p)^2 log p / sum t with t nonzero only on
@@ -206,8 +235,8 @@ def fused_bond_type_loss(bond_type_logits: torch.Tensor,
         b, bn, 27, 1))[..., 0]                                  # (B, Bn, 27)
     p = torch.exp(lp)
     tvals = torch.where(center, 1.0, 0.5) * inb * valid[:, :, None]
-    loss = torch.sum(-tvals * (1 - p) ** 2 * lp)
-    return loss / torch.clamp(torch.sum(tvals), min=1e-6)
+    return torch.sum(-tvals * (1 - p) ** 2 * lp), torch.sum(tvals), \
+        _floor(1e-6)
 
 
 # Uncertainty weighting (train.py:127-137). s has 10 entries; the mapping

@@ -164,8 +164,8 @@ def unpack_noise(bits: torch.Tensor, rates: torch.Tensor, seed: Seed,
     in [0, 2^63) or a one-element int64 tensor (on the card it is read
     from device memory, so a seed drawn there never visits the host).
     Rates of 0 give the pure unpack. A CUDA tensor goes through the
-    kernel, a CPU tensor through the plain version; anything else
-    raises."""
+    kernel, launched on that tensor's device, a CPU tensor through the
+    plain version; anything else raises."""
     _check(bits, rates, dtype)
     if bits.device.type == "cpu":
         return unpack_noise_plain(bits, rates, seed, dtype)
@@ -184,8 +184,9 @@ def unpack_noise(bits: torch.Tensor, rates: torch.Tensor, seed: Seed,
     lib = _lib()
     fn = (lib.abcnet_unpack_noise_bf16 if dtype == torch.bfloat16
           else lib.abcnet_unpack_noise_f32)
-    err = fn(bits.data_ptr(), rates.data_ptr(), seed_t.data_ptr(),
-             out.data_ptr(), bits.numel(), h * wb, stream_ptr(bits))
+    with torch.cuda.device(bits.device):
+        err = fn(bits.data_ptr(), rates.data_ptr(), seed_t.data_ptr(),
+                 out.data_ptr(), bits.numel(), h * wb, stream_ptr(bits))
     if err:
         raise RuntimeError(f"unpack_noise kernel launch failed (CUDA error "
                            f"{err})")
@@ -203,8 +204,9 @@ def int32_probe(out: torch.Tensor, rounds: int) -> int:
             out.numel() % 256 or not out.is_contiguous():
         raise ValueError("int32_probe takes a contiguous int32 CUDA tensor "
                          "of a multiple of 256 elements")
-    ops = _lib().abcnet_int32_probe(out.data_ptr(), out.numel() // 256,
-                                    rounds, stream_ptr(out))
+    with torch.cuda.device(out.device):
+        ops = _lib().abcnet_int32_probe(out.data_ptr(), out.numel() // 256,
+                                        rounds, stream_ptr(out))
     if ops < 0:
         raise RuntimeError("int32_probe kernel launch failed")
     return ops

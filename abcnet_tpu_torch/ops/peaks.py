@@ -11,7 +11,7 @@ One launch serves one map (`nms_topk`) or the two heatmaps of a serving
 batch (`nms_topk_pair`). The kernel reads each map once and is bound by
 latency, above all by instructions that run once; the CUDA source says
 how its design meets that. Both entry points launch the kernel for CUDA
-tensors and run `nms_topk_plain` for CPU ones.
+tensors, on those tensors' device, and run `nms_topk_plain` for CPU ones.
 
 Contract (the XLA path of abcnet_tpu/infer/decode.py:102-106, which
 tests/test_pallas_peaks.py holds the Pallas kernel to):
@@ -113,9 +113,11 @@ def _launch(maps, ks, threshold: float, cluster: int):
     for j in (0, -1):                   # a single map fills both places
         args += [maps[j].data_ptr(), ks[j], out[j][0].data_ptr(),
                  out[j][1].data_ptr()]
-    err = lib.abcnet_nms_topk(*args, len(maps), b, h, w, float(threshold),
-                              int(first.dtype == torch.bfloat16), cluster,
-                              stream_ptr(first))
+    with torch.cuda.device(first.device):
+        err = lib.abcnet_nms_topk(*args, len(maps), b, h, w,
+                                  float(threshold),
+                                  int(first.dtype == torch.bfloat16),
+                                  cluster, stream_ptr(first))
     if err:
         raise RuntimeError(f"nms_topk kernel launch failed (CUDA error "
                            f"{err})")
@@ -149,12 +151,15 @@ def nms_topk_pair(a_logit: torch.Tensor, k_a: int, b_logit: torch.Tensor,
 
 
 def null_launch(b: int, h: int, w: int, k: int, maps: int = 2,
-                cluster: int = CLUSTER) -> None:
-    """Launch an empty kernel with the grid, cluster and shared memory
-    that the NMS kernel takes for `maps` (b, h, w) maps: what a launch
-    of that shape costs by itself. For measurements only."""
-    err = _lib().abcnet_nms_topk_null(
-        maps, b, h, w, k, cluster, torch.cuda.current_stream().cuda_stream)
+                cluster: int = CLUSTER, device="cuda") -> None:
+    """Launch an empty kernel on `device` with the grid, cluster and
+    shared memory that the NMS kernel takes for `maps` (b, h, w) maps:
+    what a launch of that shape costs by itself. For measurements only."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        err = _lib().abcnet_nms_topk_null(
+            maps, b, h, w, k, cluster,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"null launch failed (CUDA error {err})")
 

@@ -18,7 +18,7 @@ brought to the host.
 
 The full (6, 60, G, G) bond_type tensor is built only on request
 (evaluation and tests): the training loss gathers predictions at the
-labelled cells instead (ops/losses.py:fused_bond_type_loss).
+labelled cells instead (ops/losses.py:_fused_bond_type_parts).
 """
 
 from __future__ import annotations

@@ -43,8 +43,9 @@ def unpack_bits(bits: torch.Tensor,
                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(..., W/8) uint8 -> (..., W) mask in `dtype` (bf16 or f32).
 
-    A CUDA tensor goes through the kernel, a CPU tensor through the plain
-    version; anything else raises."""
+    A CUDA tensor goes through the kernel, launched on that tensor's
+    device, a CPU tensor through the plain version; anything else
+    raises."""
     if bits.dtype != torch.uint8:
         raise TypeError(f"unpack_bits takes uint8 bits, got {bits.dtype}")
     if dtype not in DTYPES:
@@ -61,7 +62,9 @@ def unpack_bits(bits: torch.Tensor,
     lib = _lib()
     fn = (lib.abcnet_unpack_bits_bf16 if dtype == torch.bfloat16
           else lib.abcnet_unpack_bits_f32)
-    err = fn(bits.data_ptr(), out.data_ptr(), bits.numel(), stream_ptr(bits))
+    with torch.cuda.device(bits.device):
+        err = fn(bits.data_ptr(), out.data_ptr(), bits.numel(),
+                 stream_ptr(bits))
     if err:
         raise RuntimeError(f"unpack_bits kernel launch failed (CUDA error "
                            f"{err})")

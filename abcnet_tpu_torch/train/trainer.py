@@ -1,4 +1,5 @@
-"""Single-GPU training: train/eval steps, checkpoints, the fit loop.
+"""Training on one GPU or data-parallel over several: train/eval steps,
+checkpoints, the fit loop.
 
 Counterpart of abcnet_tpu/train/trainer.py; semantics parity with the
 reference training loop (reference src/train.py:44-141):
@@ -28,23 +29,42 @@ generator on the model's device with it and draws the noise rates, the
 noise kernel's seed and the dropout masks from that, in this order. So
 the same `rng` gives `train_metrics_step` the very images its paired
 `train_step` saw, and nothing touches the global random state.
+
+Data parallel (the JAX package's SPMD step over a `data` mesh,
+abcnet_tpu/train/trainer.py:385-417) is one process per GPU under
+`torchrun`, over the state's `parallel.Mesh`. `cfg.batch_size` stays the
+global batch: every rank draws it in the same seeded order and takes its
+rows (`parallel.shard_batch`). The module is replicated from rank 0 and
+wrapped in DistributedDataParallel; its BatchNorms normalize over the
+global batch; every loss term is the rank's share of the global ratio
+(ops/losses.py), so the backward of world × the rank's total, averaged
+by DDP, is the gradient of the global loss. Totals, terms and metric
+(num, den) pairs are summed over the ranks before they are returned.
+Each rank draws its noise and dropout from its own stream, derived from
+the shared per-step `rng` and its rank (rank 0's is the single-process
+stream). Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..data import pipeline, vocab
 from ..models.unet import PRODUCTION_HEADS, UNet
 from ..ops import losses as L
 from ..ops.noise import SEED_MAX
 from ..ops.targets import build_targets
+from ..parallel import (Mesh, all_reduce_sum, make_mesh, replicate_tree,
+                        shard_batch, sync_batchnorm)
 from ..utils.device import resolve_device
 from . import metrics as M
 
@@ -71,6 +91,9 @@ class TrainConfig:
     # (~24 MB f32); a smaller eval batch keeps device memory headroom.
     eval_batch_size: int = 16
     ckpt_dir: Optional[str] = None
+    # Data-parallel ranks: None takes every rank of the process group
+    # (one process per GPU, started by torchrun), or one device without
+    # a group; more than one needs the group.
     n_devices: Optional[int] = None
     device: str = "cuda"         # "cpu" runs the plain versions (tests)
 
@@ -85,10 +108,26 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int
     generator: torch.Generator     # CPU; the source of the per-step rng
+    mesh: Optional[Mesh] = None    # None: one device, no process group
+    # The module wrapped for the gradient all-reduce (mesh.world > 1)
+    ddp: Optional[DistributedDataParallel] = field(default=None,
+                                                   repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.model.s.device
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.rank if self.mesh is not None else 0
+
+    @property
+    def world(self) -> int:
+        return self.mesh.world if self.mesh is not None else 1
+
+    @property
+    def group(self):
+        return self.mesh.group if self.world > 1 else None
 
 
 def make_optimizer(cfg: TrainConfig, model: torch.nn.Module
@@ -107,26 +146,45 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
     return state
 
 
-def create_state(cfg: TrainConfig, model: Optional[UNet] = None
-                 ) -> TrainState:
-    """A fresh state on `cfg.device`: the production UNet initialized
-    from `cfg.seed` (or `model`, e.g. one loaded from a snapshot), Adam,
-    step 0 and the rng generator seeded `cfg.seed + 1`."""
+def _train_mesh(cfg: TrainConfig) -> Mesh:
+    if dist.is_initialized():
+        return make_mesh(cfg.n_devices, cfg.device)
     if cfg.n_devices is not None and cfg.n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1: data-parallel training is not ported yet")
-    dev = resolve_device(cfg.device)
+        raise RuntimeError(
+            f"n_devices={cfg.n_devices}: data-parallel training runs one "
+            "process per GPU; start it with torchrun (python -m torch."
+            "distributed.run --nproc-per-node N -m abcnet_tpu_torch train "
+            "...) or join a process group with parallel.init_distributed()")
+    return Mesh((resolve_device(cfg.device),))
+
+
+def create_state(cfg: TrainConfig, model: Optional[torch.nn.Module] = None,
+                 mesh: Optional[Mesh] = None) -> TrainState:
+    """A fresh state on the mesh's device (`cfg.device` without a process
+    group): the production UNet initialized from `cfg.seed` (or `model`,
+    e.g. one loaded from a snapshot, or a variant such as UNetCBAM),
+    Adam, step 0 and the rng generator seeded `cfg.seed + 1`. In a
+    process group the module is replicated from rank 0, its BatchNorms
+    take the group, and it is wrapped for the gradient all-reduce."""
+    mesh = mesh or _train_mesh(cfg)
+    dev = mesh.device
     if model is None:
-        # Seeded init that leaves the global random state as it was.
-        cuda = range(torch.cuda.device_count()) if dev.type == "cuda" else []
-        with torch.random.fork_rng(devices=list(cuda)):
+        # Seeded init on the CPU that leaves the global random state as
+        # it was.
+        with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             model = UNet(heads=tuple(cfg.heads),
                          dtype=getattr(torch, cfg.dtype))
-    model = model.to(dev)
+    model = sync_batchnorm(replicate_tree(model.to(dev), mesh), mesh)
+    ddp = None
+    if mesh.world > 1:
+        ddp = DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None,
+            broadcast_buffers=False, process_group=mesh.group)
     return TrainState(model=model, optimizer=make_optimizer(cfg, model),
                       step=0,
-                      generator=torch.Generator().manual_seed(cfg.seed + 1))
+                      generator=torch.Generator().manual_seed(cfg.seed + 1),
+                      mesh=mesh, ddp=ddp)
 
 
 def next_rng(state: TrainState) -> int:
@@ -135,10 +193,36 @@ def next_rng(state: TrainState) -> int:
     return int(torch.randint(0, SEED_MAX, (1,), generator=state.generator))
 
 
+# Odd 63-bit constant (the golden ratio's) that spreads ranks' streams.
+_RANK_STRIDE = 0x1E3779B97F4A7C15
+
+
 def _step_generator(state: TrainState, rng: Optional[int]
                     ) -> torch.Generator:
+    """This rank's generator for one step: seeded with `rng` on rank 0
+    and with a seed derived from `rng` and the rank on the others, so
+    ranks stamp different noise and dropout on their images."""
     seed = next_rng(state) if rng is None else int(rng)
+    seed = (seed + state.rank * _RANK_STRIDE) % (SEED_MAX + 1)
     return torch.Generator(device=state.device).manual_seed(seed)
+
+
+def _global(state: TrainState, total: torch.Tensor,
+            losses: Dict[str, torch.Tensor], metrics: Dict[str, Tuple]):
+    """Total, terms and metric pairs summed over the ranks (one
+    all-reduce); as they are in a single process."""
+    if state.world == 1:
+        return total, losses, metrics
+    keys = list(metrics)
+    flat = torch.stack([total.detach().float()]
+                       + [v.detach().float() for v in losses.values()]
+                       + [x.float() for pair in metrics.values()
+                          for x in pair])
+    all_reduce_sum(flat, state.mesh)
+    n = len(losses)
+    pairs = flat[1 + n:].reshape(-1, 2)
+    return (flat[0], dict(zip(losses, flat[1:1 + n])),
+            {k: (pairs[i, 0], pairs[i, 1]) for i, k in enumerate(keys)})
 
 
 def to_device(host_batch: Dict[str, np.ndarray], device) -> Batch:
@@ -173,7 +257,8 @@ def _input_images(batch: Batch, dtype: torch.dtype,
 def loss_and_metrics(model: UNet, batch: Batch,
                      generator: Optional[torch.Generator] = None,
                      amount: float = 0.2, train: bool = True,
-                     with_metrics: bool = True):
+                     with_metrics: bool = True, group=None,
+                     forward: Optional[torch.nn.Module] = None):
     """One forward: preprocess -> targets -> model -> losses.
 
     train=True puts the model in train mode (batch-stat BN, whose
@@ -181,14 +266,19 @@ def loss_and_metrics(model: UNet, batch: Batch,
     input noise, and uses the fused bond-type loss; train=False is the
     eval forward with the dense bond-type target. Returns (total, aux)
     with aux["losses"] and, if asked, aux["metrics"]; `total` carries
-    the graph when gradients are enabled."""
+    the graph when gradients are enabled. With a process `group` the
+    losses are this rank's shares of the global batch's (ops/losses.py);
+    `forward` is the module to call in place of `model` (its DDP
+    wrapper)."""
     images = _input_images(batch, model.dtype, generator, amount, train)
     grid = images.shape[1] // vocab.STRIDE
     targets = build_targets(batch, with_full_type=not train, grid=grid)
 
     model.train(train)
-    preds = model(images, generator=generator if train else None)
-    losses = L.compute_losses(preds, targets, batch, fused_bond_type=train)
+    preds = (forward or model)(images,
+                               generator=generator if train else None)
+    losses = L.compute_losses(preds, targets, batch, fused_bond_type=train,
+                              group=group)
     total = L.total_loss(losses, model.s)
     aux = {"losses": losses}
     if with_metrics:
@@ -202,21 +292,30 @@ def _detached(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in d.items()}
 
 
+def _backward(state: TrainState, total: torch.Tensor) -> None:
+    """Gradient of the global loss: DDP averages the ranks' gradients, and
+    each rank's total is its share, so it is scaled by the world size."""
+    (total * state.world if state.world > 1 else total).backward()
+
+
 def train_step(state: TrainState, batch: Batch, rng: Optional[int] = None,
                amount: float = 0.2, with_metrics: bool = True):
-    """One training step on a device batch; updates `state` in place.
-    with_metrics=False skips the NMS metric suite (callers may sample it
-    every k-th step with train_metrics_step instead). Returns (state,
-    total, losses, metrics) as device tensors."""
+    """One training step on a device batch (this rank's rows); updates
+    `state` in place. with_metrics=False skips the NMS metric suite
+    (callers may sample it every k-th step with train_metrics_step
+    instead). Returns (state, total, losses, metrics) as device tensors,
+    those of the global batch."""
     gen = _step_generator(state, rng)
     state.optimizer.zero_grad(set_to_none=True)
     total, aux = loss_and_metrics(state.model, batch, gen, amount, True,
-                                  with_metrics)
-    total.backward()
+                                  with_metrics, state.group, state.ddp)
+    _backward(state, total)
     state.optimizer.step()
     state.step += 1
-    return state, total.detach(), _detached(aux["losses"]), \
-        aux.get("metrics", {})
+    total, losses, metrics = _global(state, total.detach(),
+                                     _detached(aux["losses"]),
+                                     aux.get("metrics", {}))
+    return state, total, losses, metrics
 
 
 def _interleave_split(batch: Batch, n_micro: int) -> Batch:
@@ -248,16 +347,23 @@ def train_step_scan(state: TrainState, batch: Batch,
     tsum, lsum = 0.0, {}
     for i in range(n_micro):
         mb = {k: v[i] for k, v in micro.items()}
-        total, aux = loss_and_metrics(state.model, mb, gen, amount, True,
-                                      False)
-        (total / n_micro).backward()
+        # Under DDP the gradients are reduced once, after the last one.
+        sync = (state.ddp.no_sync() if state.ddp is not None
+                and i < n_micro - 1 else contextlib.nullcontext())
+        with sync:
+            total, aux = loss_and_metrics(state.model, mb, gen, amount,
+                                          True, False, state.group,
+                                          state.ddp)
+            _backward(state, total / n_micro)
         tsum = tsum + total.detach()
         for k, v in aux["losses"].items():
             lsum[k] = lsum.get(k, 0.0) + v.detach()
     state.optimizer.step()
     state.step += 1
-    return state, tsum / n_micro, \
-        {k: v / n_micro for k, v in lsum.items()}, {}
+    total, losses, _ = _global(state, tsum / n_micro,
+                               {k: v / n_micro for k, v in lsum.items()},
+                               {})
+    return state, total, losses, {}
 
 
 @torch.no_grad()
@@ -275,15 +381,18 @@ def train_metrics_step(state: TrainState, batch: Batch, rng: int,
     targets = build_targets(batch, with_full_type=False, grid=grid)
     state.model.eval()
     preds = state.model(images)
-    return M.compute_metrics(preds, L._to_nhwc_targets(targets))
+    metrics = M.compute_metrics(preds, L._to_nhwc_targets(targets))
+    return _global(state, torch.zeros((), device=state.device), {},
+                   metrics)[2]
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, batch: Batch):
     """Eval forward (no noise, running BN stats, dense bond-type target)
-    -> (total, losses, metrics)."""
-    total, aux = loss_and_metrics(state.model, batch, None, 0.0, False)
-    return total, aux["losses"], aux["metrics"]
+    -> (total, losses, metrics) of the global batch."""
+    total, aux = loss_and_metrics(state.model, batch, None, 0.0, False,
+                                  group=state.group)
+    return _global(state, total, aux["losses"], aux["metrics"])
 
 
 @torch.no_grad()
@@ -306,17 +415,20 @@ def save_checkpoint(state: TrainState, ckpt_dir: str,
                     step: Optional[int] = None) -> str:
     """Persist model, full optimizer state (Adam moments, step counts,
     LR), step and the rng generator's state, so a resume continues with
-    identical moments, LR and random stream. Written to a temporary name
-    and renamed into place."""
+    identical moments, LR and random stream. Written by rank 0 to a
+    temporary name and renamed into place."""
     step = state.step if step is None else step
     path = _ckpt_path(ckpt_dir, step)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": int(step),
-                "generator": state.generator.get_state()}, tmp)
-    os.replace(tmp, path)
+    if state.rank == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": int(step),
+                    "generator": state.generator.get_state()}, tmp)
+        os.replace(tmp, path)
+    if state.world > 1:
+        dist.barrier(group=state.group)   # the file exists for every rank
     return path
 
 
@@ -344,19 +456,29 @@ def restore_checkpoint(state: TrainState, ckpt_dir: str,
 # Fit loop
 # ---------------------------------------------------------------------------
 
+def _rows(host_batch: Dict[str, np.ndarray], state: TrainState):
+    """This rank's rows of a global host batch."""
+    return shard_batch(host_batch, state.mesh) if state.world > 1 \
+        else host_batch
+
+
 def fit(cfg: TrainConfig, train_examples, test_examples=None,
-        state: Optional[TrainState] = None, verbose: bool = True
-        ) -> TrainState:
+        state: Optional[TrainState] = None, verbose: bool = True,
+        mesh: Optional[Mesh] = None) -> TrainState:
     """Train over in-memory data (see data/pipeline.py for sources).
 
     train_examples may be raw Samples — then every epoch re-augments
     them (the reference's dataloader re-runs __getitem__ per epoch,
-    utils.py:47-61) — or pre-built Examples (fixed augmentation)."""
+    utils.py:47-61) — or pre-built Examples (fixed augmentation). In a
+    process group every rank calls fit with the same data and config;
+    each trains on its rows of every global batch, and only rank 0
+    prints."""
     samples_mode = bool(train_examples) and isinstance(
         train_examples[0], pipeline.Sample)
     if state is None:
-        state = create_state(cfg)
+        state = create_state(cfg, mesh=mesh)
     dev = state.device
+    verbose = verbose and state.rank == 0
     meters = M.MeterBank()
     t0 = time.time()
     imgs_done = 0
@@ -377,7 +499,7 @@ def fit(cfg: TrainConfig, train_examples, test_examples=None,
             it = pipeline.batches_from_examples(
                 train_examples, cfg.batch_size, seed=cfg.seed + epoch)
         for host_batch in pipeline.PrefetchIterator(it):
-            batch = to_device(host_batch, dev)
+            batch = to_device(_rows(host_batch, state), dev)
             sub = next_rng(state)
             with_m = state.step % cfg.metrics_every == 0
             state, total, _, _ = train_step(state, batch, sub,
@@ -408,14 +530,16 @@ def fit(cfg: TrainConfig, train_examples, test_examples=None,
 def evaluate(state: TrainState, examples, cfg: TrainConfig,
              verbose: bool = True) -> Dict[str, float]:
     """Eval-mode losses and metrics over `examples` in batches of
-    `cfg.eval_batch_size`; one host fetch at the end. The mean total
-    loss is returned under "loss" beside the metric averages."""
+    `cfg.eval_batch_size` (global batches, sharded like training); one
+    host fetch at the end. The mean total loss is returned under "loss"
+    beside the metric averages."""
     meters = M.MeterBank()
     total_sum, nb = 0.0, 0
+    verbose = verbose and state.rank == 0
     for host_batch in pipeline.batches_from_examples(
             examples, cfg.eval_batch_size, shuffle=False,
             drop_remainder=True):
-        total, _, mets = eval_step(state, to_device(host_batch,
+        total, _, mets = eval_step(state, to_device(_rows(host_batch, state),
                                                     state.device))
         meters.update(mets)
         total_sum = total_sum + total

@@ -50,7 +50,31 @@ per phase:
        and the serving pipeline decodes the fixture with them;
      - train_times: CUDA-event times per stage of one step, img/s of
        the fit loop, peak memory, a torch.profiler operator table;
-  7. the card line of nvidia-smi, then the kernels line, then the result.
+  7. device_guard (run right after the build): every kernel wrapper on
+     the last visible GPU while GPU 0 is current, bit-equal to its plain
+     version (on a one-GPU machine it says so: "gpus": 1);
+  8. ddp_train: two ranks of data-parallel training (NCCL on two GPUs, or
+     both ranks on the one card over gloo, which is no speed figure), full
+     width at 512²: the first f32 step at global batch 16 against one
+     process at batch 16 on the same images (losses, gradients, running
+     statistics), then bf16 at global batch 64 through `fit` for 10 steps
+     with ms/step and peak memory per rank;
+  9. mesh_serving: make_infer_pipeline over every visible GPU (four row
+     blocks on a one-GPU machine), peak dicts bit-equal to the unsharded
+     pipeline on each row block, SMILES against the whole batch, img/s;
+ 10. variants (bf16, 512², batch 64, seeded init): UNetS2D and UNetCBAM
+     take 5 train steps each, S2D also serves; fused_head_bank and
+     remat_blocks beside the plain UNet, first-step losses against it;
+ 11. quant_serving: prepare_quant on the snapshot, calibrated on 32
+     fixture images, the 64 molecules served through the int8 backbone;
+     exact match beside bf16, the int8 trunk's time against the bf16
+     trunk's, int32 accumulators against a float64 conv on the card;
+ 12. the card line of nvidia-smi, then the kernels line, then the result.
+
+Every new path is driven with the kernels' launch counts set to 0 just
+before it and read just after (`launches_by_path` of the kernels line).
+`--phases a,b` runs the environment phase and the named phases only (for
+iterating on the card); with no arguments every phase runs.
 
 Exits non-zero on any failed phase, and without a result when there is
 no CUDA device or no abcnet_tpu_torch package beside the script.
@@ -87,6 +111,28 @@ NOISE_OPS_PER_BYTE = 8 * 4 * 4 + (1 + 4) + (4 + 7) + 18 + 8 * 4 + 8
 TRAIN_STEPS = 30                  # steps of the train_bf16 phase
 TRAIN_LOSS_FRACTION = 0.5         # gate: last total < this x first total
 EVAL_REL_TOL = 1e-3               # train_f32: per loss term against JAX
+# ddp_train, f32 step of two ranks against one process at batch 16 (TF32
+# off, the snapshot weights, noise and dropout off). Only the order of the
+# sums differs: losses and running statistics to 1e-4 relative; gradients
+# by the relative L2 error of each leaf and of the whole tree. A train-mode
+# BatchNorm backward amplifies the f32 order of the sums
+# (tests/test_torch_parallel.py: up to 1.6e-2 on the CPU); on an H100 the
+# first run measured 5.8e-4 and 2.6e-4, and the gates keep a tenfold margin.
+DDP_LOSS_REL, DDP_STAT_REL = 1e-4, 1e-4
+DDP_GRAD_LEAF, DDP_GRAD_TREE = 1e-2, 5e-3
+DDP_BATCH_F32, DDP_BATCH_BF16, DDP_STEPS = 16, 64, 10
+VARIANT_STEPS = 5
+# fused head bank vs per-head, first-step losses in bf16: one 128->1024
+# conv against eight 128->128 convs may round the bf16 logits differently.
+FUSED_LOSS_REL = 2e-2
+# int8 serving: the TPU's int8 run lost 1.2 points of exact match on 256
+# rows (logs/quant_r5.log); 4 of 64 rows allow that and near-tie flips.
+QUANT_EXACT_SLACK = 4 / 64
+# mesh_serving: row blocks on a one-GPU machine, and the SMILES that may
+# flip against the whole-batch run (near-tie NMS flips, as the f32 gate
+# allows against JAX)
+MESH_BLOCKS = 4
+MESH_SMILES_SLACK = 2
 
 
 def emit(phase, **kw):
@@ -456,7 +502,7 @@ def phase_bf16(torch, fixture):
                             if p != t])
     if not ok:
         raise AssertionError("bf16 serving below the gate")
-    return model, run, launches
+    return model, run, launches, preds
 
 
 def stage_breakdown(torch, model, images_u8):
@@ -963,7 +1009,609 @@ def phase_train_times(torch, samples, state, cfg, kernels):
               "train_steps on one resident batch")
 
 
-def main():
+# ---------------------------------------------------------------------------
+# Slice 4: device guard, data parallel, mesh serving, variants, int8
+# ---------------------------------------------------------------------------
+
+def reset_launches():
+    from abcnet_tpu_torch.ops.noise import unpack_noise
+    from abcnet_tpu_torch.ops.peaks import nms_topk
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+    for fn in (unpack_bits, unpack_noise, nms_topk):
+        fn.launches = 0
+
+
+def read_launches():
+    from abcnet_tpu_torch.ops.noise import unpack_noise
+    from abcnet_tpu_torch.ops.peaks import nms_topk
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+    return {"unpack_bits": unpack_bits.launches,
+            "unpack_noise": unpack_noise.launches,
+            "nms_topk": nms_topk.launches}
+
+
+def phase_device_guard(torch):
+    """Every kernel wrapper on the last visible GPU while GPU 0 is the
+    current device, bit-equal to its plain version there."""
+    import numpy as np
+
+    from abcnet_tpu_torch.data.pipeline import draw_noise_rates
+    from abcnet_tpu_torch.ops.noise import (int32_probe, unpack_noise,
+                                            unpack_noise_plain)
+    from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
+                                            null_launch)
+    from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
+
+    gpus = torch.cuda.device_count()
+    dev = torch.device("cuda", gpus - 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(3)
+    bits = torch.from_numpy(rng.integers(0, 256, (BATCH, 512, 64),
+                                         dtype=np.uint8)).to(dev)
+    checked = []
+    for dt in (torch.bfloat16, torch.float32):
+        if not torch.equal(unpack_bits(bits, dt), unpack_bits_plain(bits, dt)):
+            raise AssertionError(f"unpack_bits on {dev} differs")
+        rates = draw_noise_rates(BATCH, 0.2, dev, torch.Generator(
+            device=dev).manual_seed(0))
+        for seed in (0, 43100):
+            got = unpack_noise(bits, rates, seed, dt)
+            if got.device != dev or not torch.equal(
+                    got, unpack_noise_plain(bits, rates, seed, dt)):
+                raise AssertionError(f"unpack_noise on {dev} differs")
+        checked += [f"unpack_bits/{str(dt)[6:]}", f"unpack_noise/{str(dt)[6:]}"]
+    for name, maps, thr in _peak_cases(torch)[:2]:
+        for dt in (torch.float32, torch.bfloat16):
+            m = maps.to(dev, dt)
+            _, _, all_idx = check_nms(torch, m, 128, thr)
+            err, pair_idx = check_nms_pair(torch, m, m, thr)
+            if not (all_idx and pair_idx) or err:
+                raise AssertionError(f"nms_topk on {dev} differs ({name})")
+            checked += [f"nms_topk/{name}/{str(dt)[6:]}",
+                        f"nms_topk_pair/{name}/{str(dt)[6:]}"]
+    null_launch(BATCH, 128, 128, 160, maps=2, device=dev)
+    probe = torch.empty(SMS * 256, dtype=torch.int32, device=dev)
+    int32_probe(probe, 4)
+    torch.cuda.synchronize(dev)
+    checked += ["null_launch", "int32_probe"]
+    if torch.cuda.current_device() != 0:
+        raise AssertionError("a kernel wrapper changed the current device")
+    emit("device_guard", ok=True, gpus=gpus, device=str(dev),
+         current_device=0, checked=checked,
+         note=("one GPU: the kernels ran on it, the guard across devices is "
+               "not exercised" if gpus == 1 else
+               "kernels launched on the last GPU with GPU 0 current"))
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def f32_ddp_step(torch, samples, mesh=None):
+    """One f32 train_step (TF32 off, noise and dropout off) from the
+    snapshot weights on the first DDP_BATCH_F32 fixture molecules
+    (this rank's rows under a mesh). Returns a flat dict of numpy arrays:
+    losses, gradients, running statistics."""
+    import random
+
+    import numpy as np
+
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.models.unet import OutConv
+    from abcnet_tpu_torch.models.weights import load_snapshot, to_flax
+    from abcnet_tpu_torch.parallel import shard_batch
+    from abcnet_tpu_torch.train import trainer
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    drop, OutConv.DROP = OutConv.DROP, 0.0
+    try:
+        model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.float32)
+        cfg = trainer.TrainConfig(dtype="float32", batch_size=DDP_BATCH_F32)
+        state = trainer.create_state(cfg, model, mesh=mesh)
+        rng = random.Random(0)
+        host = pipeline.collate([pipeline.sample_to_example(s, rng,
+                                                            train=False)
+                                 for s in samples[:DDP_BATCH_F32]])
+        if mesh is not None:
+            host = shard_batch(host, mesh)
+        _, total, losses, _ = trainer.train_step(
+            state, trainer.to_device(host, state.device), rng=0, amount=0.0,
+            with_metrics=False)
+        out = {"loss/total": np.float64(float(total))}
+        out.update({f"loss/{k}": np.float64(float(v))
+                    for k, v in losses.items()})
+        grads = to_flax({n: p.grad for n, p in model.named_parameters()})[0]
+        out.update({f"grad/{k}": v for k, v in _flat_tree(grads).items()})
+        out.update({f"stat/{k}": v for k, v in
+                    _flat_tree(to_flax(model.state_dict())[1]).items()})
+    finally:
+        OutConv.DROP = drop
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    return out
+
+
+def ddp_worker(out_path, backend):
+    """One rank of the ddp_train phase (started by phase_ddp_train with
+    RANK, WORLD_SIZE, LOCAL_RANK and MASTER_* in its environment)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from abcnet_tpu_torch.parallel import init_distributed, make_mesh
+    from abcnet_tpu_torch.train import trainer
+
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    if backend == "gloo":
+        dist.init_process_group("gloo", rank=rank,
+                                world_size=int(os.environ["WORLD_SIZE"]))
+        mesh = make_mesh(device="cuda")
+    else:
+        mesh = init_distributed("cuda")
+    assets = os.path.join(HERE, "abcnet_tpu_torch", "assets")
+    fixture = dict(np.load(os.path.join(assets, "smoke_step43100.npz")))
+    labels = dict(np.load(os.path.join(assets, "train_step43100.npz")))
+    samples = fixture_samples(fixture, labels)
+    out = f32_ddp_step(torch, samples, mesh)
+    torch.cuda.empty_cache()
+
+    cfg = trainer.TrainConfig(batch_size=DDP_BATCH_BF16, epochs=DDP_STEPS,
+                              eval_every=10 ** 9, seed=0)
+    state = trainer.create_state(cfg, mesh=mesh)
+    totals, times = [], []
+    step_fn = trainer.train_step
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step_fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        totals.append(float(res[1]))
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trainer.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(cfg, samples, None, state=state, verbose=False)
+    finally:
+        trainer.train_step = step_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    checksum = sum(float(p.double().sum()) for p in state.model.parameters())
+    out.update({
+        "bf16/totals": np.asarray(totals), "bf16/step_ms": np.asarray(times),
+        "bf16/fit_wall_s": np.float64(wall),
+        "bf16/peak_mem_gib": np.float64(torch.cuda.max_memory_allocated()
+                                        / 2 ** 30),
+        "bf16/param_checksum": np.float64(checksum),
+        "bf16/local_batch": np.int64(DDP_BATCH_BF16 // mesh.world),
+        **{f"launches/{k}": np.int64(v) for k, v in launches.items()}})
+    np.savez(out_path, **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_ddp_train(torch, samples):
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    gpus = torch.cuda.device_count()
+    backend = "nccl" if gpus >= 2 else "gloo"
+    ref = f32_ddp_step(torch, samples)
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for rank in range(2):
+            env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "2",
+                   "LOCAL_RANK": str(rank if gpus >= 2 else 0),
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                 os.path.join(tmp, f"rank{rank}.npz"), backend],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"a ddp rank failed:\n{log[-4000:]}")
+        r0, r1 = (dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                  for r in range(2))
+
+    loss_rel = {k[5:]: abs(float(r0[k]) - float(ref[k])) /
+                max(abs(float(ref[k])), 1e-6)
+                for k in ref if k.startswith("loss/")}
+    grads = [k for k in ref if k.startswith("grad/")]
+    norms = {k: float(np.linalg.norm(ref[k])) for k in grads}
+    top = max(norms.values())
+    leaf = {k[5:]: float(np.linalg.norm(r0[k] - ref[k])) / norms[k]
+            for k in grads if norms[k] > 1e-3 * top}
+    tree = float(np.sqrt(sum(float(np.sum((r0[k] - ref[k]) ** 2))
+                             for k in grads))
+                 / np.sqrt(sum(n * n for n in norms.values())))
+    stats = [k for k in ref if k.startswith("stat/")]
+    stat_err = max(float(np.max(np.abs(r0[k] - ref[k])
+                                / (np.abs(ref[k]) + 1e-3))) for k in stats)
+    ranks_equal = all(np.array_equal(r0[k], r1[k]) for k in stats + grads) \
+        and float(r0["bf16/param_checksum"]) == float(r1["bf16/param_checksum"])
+    totals = r0["bf16/totals"].tolist()
+    finite = bool(np.all(np.isfinite(r0["bf16/totals"])))
+    ok = (max(loss_rel.values()) <= DDP_LOSS_REL and
+          max(leaf.values()) <= DDP_GRAD_LEAF and tree <= DDP_GRAD_TREE and
+          stat_err <= DDP_STAT_REL and ranks_equal and finite and
+          len(totals) == DDP_STEPS and
+          int(r0["launches/unpack_noise"]) >= DDP_STEPS)
+    per_rank = [{"peak_mem_gib": float(r["bf16/peak_mem_gib"]),
+                 "step_ms_median_2_to_10": float(np.median(
+                     r["bf16/step_ms"][1:])),
+                 "step_ms": r["bf16/step_ms"].tolist(),
+                 "fit_wall_s": float(r["bf16/fit_wall_s"]),
+                 "local_batch": int(r["bf16/local_batch"]),
+                 "launches": {k[9:]: int(v) for k, v in r.items()
+                              if k.startswith("launches/")}}
+                for r in (r0, r1)]
+    emit("ddp_train", ok=ok, ranks=2, gpus=gpus, backend=backend,
+         f32_global_batch=DDP_BATCH_F32, loss_rel_err=loss_rel,
+         grad_leaf_rel_err_max=max(leaf.values()),
+         grad_leaf_worst=max(leaf, key=leaf.get), grad_tree_rel_err=tree,
+         running_stats_rel_err_max=stat_err,
+         ranks_bit_equal=ranks_equal,
+         gate=f"losses <= {DDP_LOSS_REL}, leaves <= {DDP_GRAD_LEAF}, tree <= "
+              f"{DDP_GRAD_TREE}, stats <= {DDP_STAT_REL} relative; ranks "
+              "bit-equal; bf16 totals finite",
+         bf16_global_batch=DDP_BATCH_BF16, bf16_steps=DDP_STEPS,
+         bf16_totals=totals, per_rank=per_rank,
+         note=("both ranks share one card over gloo: a check of the "
+               "algorithm, not a speed figure" if backend == "gloo" else
+               "NCCL, one GPU per rank"))
+    if not ok:
+        raise AssertionError("data-parallel training differs from one "
+                             "process")
+    return {k: int(v) for k, v in per_rank[0]["launches"].items()}
+
+
+def phase_mesh_serving(torch, fixture, bf16_model):
+    """make_infer_pipeline over every visible GPU (on a one-GPU machine:
+    MESH_BLOCKS row blocks on that GPU). Gate: peak dicts bit-equal to
+    the unsharded pipeline run on each row block alone (the per-device
+    shapes), and SMILES agreeing with the unsharded run of the whole
+    batch. Against that whole-batch run the peaks are reported, not
+    gated bit for bit: cuDNN picks its conv algorithm by batch size, so
+    the trunk of a 16-row block may differ from that of 64 rows in the
+    last bits (`trunk_max_abs_diff_vs_whole_batch`)."""
+    import numpy as np
+
+    from abcnet_tpu_torch.__main__ import img2smiles_loop
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.infer.decode import (DENSE_HEADS_SPARSE_MODE,
+                                               make_infer_pipeline)
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+    from abcnet_tpu_torch.parallel import Mesh, make_mesh
+
+    gpus = torch.cuda.device_count()
+    mesh = make_mesh(device="cuda") if gpus > 1 else \
+        Mesh((torch.device("cuda", 0),) * MESH_BLOCKS)
+    n = len(mesh.devices)
+    images = fixture["images"]
+    whole = make_infer_pipeline(bf16_model, "cuda")
+    want = whole(images)
+    parts = [whole(block) for block in np.split(images, n)]
+    blockwise = {k: np.concatenate([p[k] for p in parts]) for k in want}
+    masks = unpack_bits(torch.from_numpy(pack_images(images)).cuda())[..., None]
+    with torch.no_grad():
+        def trunk(x):
+            heads, feats = bf16_model(x, dense_heads=DENSE_HEADS_SPARSE_MODE,
+                                      return_features=True)
+            return [feats] + [heads[k] for k in sorted(heads)]
+        ref = trunk(masks)
+        blocks = [trunk(m) for m in masks.chunk(n)]
+        trunk_diff = max(float((torch.cat(b) - r).abs().max())
+                         for r, b in zip(ref, zip(*blocks)))
+    run = make_infer_pipeline(bf16_model, "cuda", mesh=mesh)
+    reset_launches()
+    got = run(images)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    equal = sorted(got) == sorted(blockwise) and all(
+        np.array_equal(got[k], blockwise[k]) for k in blockwise)
+    vs_whole = {k: int(np.sum(got[k] != want[k])) for k in want}
+    float_diff = max(float(np.max(np.abs(got[k].astype(np.float64)
+                                         - want[k])))
+                     for k in want if want[k].dtype.kind == "f")
+    smiles = img2smiles_loop(run, list(images), BATCH, log_every=0)
+    smiles_whole = img2smiles_loop(whole, list(images), BATCH, log_every=0)
+    agree = sum(a == b for a, b in zip(smiles, smiles_whole))
+    fresh = [np.roll(images, s, axis=2) for s in range(1, 9)]
+    run(fresh[0])
+    t0 = time.perf_counter()
+    for batch in fresh:
+        run(batch)
+    img_s = len(fresh) * BATCH / (time.perf_counter() - t0)
+    ok = equal and agree >= BATCH - MESH_SMILES_SLACK and \
+        launches["unpack_bits"] == n and launches["nms_topk"] == n
+    emit("mesh_serving", ok=ok, gpus=gpus, devices=[str(d) for d in
+                                                    mesh.devices],
+         batch=BATCH, peaks_equal_blockwise=equal,
+         entries_differing_vs_whole_batch=vs_whole,
+         float_max_abs_diff_vs_whole_batch=float_diff,
+         trunk_max_abs_diff_vs_whole_batch=trunk_diff,
+         smiles_agree_with_whole_batch=agree, launches_per_batch=launches,
+         pipeline_img_per_s=img_s,
+         gate=f"peak dicts equal to the unsharded pipeline on each row block; "
+              f"SMILES of >= {BATCH - MESH_SMILES_SLACK}/{BATCH} equal to the "
+              "whole-batch run; one unpack and one NMS launch per device per "
+              "batch",
+         note="img/s: dispatch + fetch per batch over 8 fresh batches, no "
+              "assembly" + ("" if gpus > 1 else
+                            f"; one GPU: {MESH_BLOCKS} row blocks on it"))
+    if not ok:
+        raise AssertionError("mesh serving differs from the unsharded run")
+    return launches
+
+
+def _train_variant(torch, trainer, model, batch, steps, rng0=0):
+    """`steps` train_steps of `model` (bf16, batch 64) on one resident
+    batch. Returns (state, totals, first step's losses, ms per step,
+    peak GiB)."""
+    cfg = trainer.TrainConfig(batch_size=BATCH)
+    state = trainer.create_state(cfg, model=model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, times, first = [], [], None
+    for i in range(steps):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        _, total, losses, _ = trainer.train_step(state, batch, rng0 + i,
+                                                 with_metrics=False)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+        totals.append(float(total))
+        if first is None:
+            first = {k: float(v) for k, v in losses.items()}
+    return (state, totals, first, times,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_variants(torch, fixture, samples):
+    import random
+
+    import numpy as np
+
+    from abcnet_tpu_torch.__main__ import img2smiles_loop
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models import UNet, UNetCBAM, UNetS2D
+    from abcnet_tpu_torch.models.fuse_heads import fuse_head_variables
+    from abcnet_tpu_torch.models.unet import OutConv
+    from abcnet_tpu_torch.models.weights import from_flax, to_flax
+    from abcnet_tpu_torch.train import trainer
+
+    rng = random.Random(2)
+    batch = trainer.to_device(pipeline.collate(
+        [pipeline.sample_to_example(s, rng, train=True) for s in samples]),
+        "cuda")
+    bf16 = torch.bfloat16
+
+    def seeded(make):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            return make()
+
+    rows, launches, ok = {}, {}, True
+    for name, make in (("s2d", lambda: UNetS2D(dtype=bf16)),
+                       ("cbam", lambda: UNetCBAM(dtype=bf16))):
+        model = seeded(make)
+        reset_launches()
+        state, totals, _, times, peak = _train_variant(
+            torch, trainer, model, batch, VARIANT_STEPS)
+        launches[f"{name}_train"] = read_launches()
+        fell = all(np.isfinite(totals)) and totals[-1] < totals[0]
+        rows[name] = {"params": sum(p.numel() for p in model.parameters()),
+                      "totals": totals, "loss_fell": fell,
+                      "step_ms_median_2_on": float(np.median(times[1:])),
+                      "step_ms": times, "peak_mem_gib": peak,
+                      "train_launches": launches[f"{name}_train"]}
+        ok = ok and fell and \
+            launches[f"{name}_train"]["unpack_noise"] == VARIANT_STEPS
+        if name == "s2d":
+            reset_launches()
+            preds = img2smiles_loop(make_infer_pipeline(model.eval(), "cuda"),
+                                    list(fixture["images"]), BATCH,
+                                    log_every=0)
+            torch.cuda.synchronize()
+            launches["s2d_serving"] = read_launches()
+            served = launches["s2d_serving"]["unpack_bits"] == 1 and \
+                launches["s2d_serving"]["nms_topk"] == 1 and \
+                len(preds) == BATCH
+            rows[name]["served"] = len(preds)
+            rows[name]["serving_launches"] = launches["s2d_serving"]
+            ok = ok and served
+        del state, model
+        torch.cuda.empty_cache()
+
+    # Production UNet, its fused head bank and remat on the same weights:
+    # a first step with dropout off (the fused bank draws one mask over
+    # 1024 channels, the heads eight over 128: other masks), then steps
+    # with dropout for the time and memory.
+    plain = seeded(lambda: UNet(dtype=bf16))
+    params, stats = to_flax(plain.state_dict())
+    fused_tree = fuse_head_variables({"params": params, "batch_stats": stats})
+    makers = {
+        "plain": lambda: plain,
+        "fused_head_bank": lambda: UNet(dtype=bf16, fused_head_bank=True),
+        "remat_blocks": lambda: UNet(dtype=bf16,
+                                     remat_blocks=UNet.BLOCKS + ("heads",)),
+    }
+    firsts = {}
+    for name, make in makers.items():
+        model = make()
+        if name == "fused_head_bank":
+            model.load_state_dict(from_flax(fused_tree["params"],
+                                            fused_tree["batch_stats"]))
+        elif name == "remat_blocks":
+            model.load_state_dict(from_flax(params, stats))
+        drop, OutConv.DROP = OutConv.DROP, 0.0
+        try:
+            state, first_total, first, _, _ = _train_variant(
+                torch, trainer, model, batch, 1, rng0=100)
+        finally:
+            OutConv.DROP = drop
+        firsts[name] = (first_total[0], first)
+        del state
+        model = make()
+        if name == "fused_head_bank":
+            model.load_state_dict(from_flax(fused_tree["params"],
+                                            fused_tree["batch_stats"]))
+        elif name == "remat_blocks":
+            model.load_state_dict(from_flax(params, stats))
+        state, totals, _, times, peak = _train_variant(
+            torch, trainer, model, batch, VARIANT_STEPS)
+        rows[name] = {"first_step_total_dropout_off": firsts[name][0],
+                      "totals": totals,
+                      "step_ms_median_2_on": float(np.median(times[1:])),
+                      "step_ms": times, "peak_mem_gib": peak}
+        del state, model
+        torch.cuda.empty_cache()
+    base = firsts["plain"][1]
+    for name, tol in (("fused_head_bank", FUSED_LOSS_REL),
+                      ("remat_blocks", 0.0)):
+        rel = {k: abs(v - base[k]) / max(abs(base[k]), 1e-6)
+               for k, v in firsts[name][1].items()}
+        rows[name]["first_step_loss_rel_err_vs_plain"] = rel
+        ok = ok and max(rel.values()) <= tol
+    emit("variants", ok=ok, batch=BATCH, dtype="bfloat16", size=512,
+         steps=VARIANT_STEPS, rows=rows,
+         gate=f"S2D and CBAM finite with the loss falling, one noise launch "
+              f"a step; S2D serves with one unpack and one NMS launch; "
+              f"first-step losses: remat equal, fused within "
+              f"{FUSED_LOSS_REL} relative",
+         note="5 train_steps on one resident batch of the 64 fixture "
+              "molecules, noise on, seeded init; ms: CUDA events, median of "
+              "steps 2-5")
+    if not ok:
+        raise AssertionError("a model variant failed its gates")
+    return launches
+
+
+def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
+    import numpy as np
+
+    from abcnet_tpu_torch.__main__ import img2smiles_loop
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.eval.scoring import score_pairs
+    from abcnet_tpu_torch.infer import quant
+    from abcnet_tpu_torch.infer.decode import (DENSE_HEADS_SPARSE_MODE,
+                                               make_infer_pipeline)
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+
+    images = fixture["images"]
+    bits = torch.from_numpy(pack_images(images)).cuda()
+    masks = unpack_bits(bits, torch.float32)[..., None]
+    t0 = time.perf_counter()
+    bundle = quant.prepare_quant(bf16_model, masks[:32])
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    run = make_infer_pipeline(bf16_model, "cuda", quant=bundle)
+    reset_launches()
+    preds = [p or "" for p in img2smiles_loop(run, list(images), BATCH,
+                                              log_every=0)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    truth = fixture["truth"].tolist()
+    q_rep = score_pairs(truth, [p or None for p in preds])
+    b_rep = score_pairs(truth, [p or None for p in bf16_preds])
+    agree = sum(p == b for p, b in zip(preds, bf16_preds))
+
+    carry = masks.to(torch.bfloat16)
+    with torch.no_grad():
+        int8_ms = device_ms(torch, lambda: quant.forward_quant(bundle, carry),
+                            reps=5)
+        bf16_ms = device_ms(torch, lambda: bf16_model(
+            carry, dense_heads=DENSE_HEADS_SPARSE_MODE,
+            return_features=True), reps=5)
+
+    # int32 accumulators against a float64 convolution of the same int8
+    # tensors on the card: exact, as the sums stay far below 2^53.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    exact = {}
+    for site, layer, shape in (("up1.0", bundle["up1"]["dc"][0][0],
+                                (BATCH, 32, 32, 512)),
+                               ("inc1.1", bundle["inc1"][1][0],
+                                (4, 512, 512, 16)),
+                               ("up1.t", bundle["up1"]["t"][0],
+                                (BATCH, 16, 16, 512))):
+        xq = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        x64 = xq.double().permute(0, 3, 1, 2)
+        if site.endswith(".t"):
+            got = quant.convt_int8(xq, layer)
+            w = torch.flip(layer.double(), (0, 1)).permute(2, 3, 0, 1)
+            want = torch.nn.functional.conv_transpose2d(x64, w, stride=2)
+        else:
+            got = quant.conv_int8(xq, layer)
+            want = torch.nn.functional.conv2d(
+                x64, layer.double().permute(3, 2, 0, 1), padding=1)
+        want = want.permute(0, 2, 3, 1)
+        exact[site] = {"k": int(layer.shape[0] * layer.shape[1]
+                                * layer.shape[2]),
+                       "max_abs_acc": int(got.abs().max()),
+                       "equal": bool(torch.equal(got.double(), want))}
+    ok = (all(e["equal"] for e in exact.values()) and
+          q_rep.exact_match >= b_rep.exact_match - QUANT_EXACT_SLACK and
+          launches["unpack_bits"] == 1 and launches["nms_topk"] == 1)
+    emit("quant_serving", ok=ok, n=len(truth), calibration_images=32,
+         prepare_s=prep_s, int8_exact=q_rep.exact_match,
+         bf16_exact=b_rep.exact_match, agree_with_bf16=agree,
+         int8=str(q_rep), bf16=str(b_rep), launches=launches,
+         int8_backbone_ms=int8_ms, bf16_trunk_ms=bf16_ms,
+         int32_vs_float64_conv=exact,
+         gate=f"int8 exact >= bf16 exact - {QUANT_EXACT_SLACK:.4f}; int32 "
+              "accumulators equal to a float64 conv; one unpack and one NMS "
+              "launch",
+         note="backbone ms: forward_quant vs the bf16 UNet trunk + heatmap "
+              "heads on the same 64 masks, median of 5 CUDA-event timings")
+    if not ok:
+        raise AssertionError("int8 serving below its gates")
+    return launches
+
+
+def main(argv):
+    if argv[:1] == ["--ddp-worker"]:
+        ddp_worker(*argv[1:3])
+        return 0
+    only = None
+    if argv[:1] == ["--phases"]:
+        only = set(argv[1].split(","))
     try:
         import torch
     except ImportError:
@@ -984,32 +1632,71 @@ def main():
         return 2
     assets = os.path.join(HERE, "abcnet_tpu_torch", "assets")
     phase = "environment"
+
+    def want(name):
+        return only is None or name in only
+
     try:
         fixture = dict(np.load(os.path.join(assets, "smoke_step43100.npz")))
         labels = dict(np.load(os.path.join(assets, "train_step43100.npz")))
         samples = fixture_samples(fixture, labels)
         phase_environment(torch)
-        phase = "kernels_vs_plain"
-        errs = phase_kernels(torch, fixture)
-        phase = "serving_f32"
-        phase_f32(torch, fixture)
+        by_path = {}
+        if want("device_guard"):
+            phase = "device_guard"
+            phase_device_guard(torch)
+        if only is None:
+            phase = "kernels_vs_plain"
+            errs = phase_kernels(torch, fixture)
+            phase = "serving_f32"
+            phase_f32(torch, fixture)
         phase = "serving_bf16"
-        model, run, launches = phase_bf16(torch, fixture)
-        phase = "train_f32"
-        phase_train_f32(torch, samples, labels)
-        phase = "train_bf16"
-        state, cfg, train_launches = phase_train_bf16(torch, fixture,
-                                                      samples)
-        launches["unpack_noise"] = train_launches["unpack_noise"]
-        phase = "times"
-        kernels = phase_times(torch, fixture, model, run, launches, errs)
-        phase = "train_times"
-        phase_train_times(torch, samples, state, cfg, kernels)
+        model, run, launches, bf16_preds = phase_bf16(torch, fixture)
+        by_path["img2smiles_bf16"] = dict(launches)
+        if only is None:
+            phase = "train_f32"
+            phase_train_f32(torch, samples, labels)
+            phase = "train_bf16"
+            state, cfg, train_launches = phase_train_bf16(torch, fixture,
+                                                          samples)
+            launches["unpack_noise"] = train_launches["unpack_noise"]
+            by_path["fit_bf16"] = dict(train_launches)
+            phase = "times"
+            kernels = phase_times(torch, fixture, model, run, launches, errs)
+            phase = "train_times"
+            phase_train_times(torch, samples, state, cfg, kernels)
+            del state
+            torch.cuda.empty_cache()
+        if want("mesh_serving"):
+            phase = "mesh_serving"
+            by_path["mesh_serving"] = phase_mesh_serving(torch, fixture,
+                                                         model)
+        if want("quant_serving"):
+            phase = "quant_serving"
+            by_path["int8_serving"] = phase_quant_serving(
+                torch, fixture, model, bf16_preds)
+        del model, run
+        torch.cuda.empty_cache()
+        if want("variants"):
+            phase = "variants"
+            by_path.update(phase_variants(torch, fixture, samples))
+        if want("ddp_train"):
+            phase = "ddp_train"
+            torch.cuda.empty_cache()
+            by_path["ddp_fit_rank0"] = phase_ddp_train(torch, samples)
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         import traceback
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         return 1
+    if only is not None:
+        print(json.dumps({"launches_by_path": by_path}), flush=True)
+        print("chip_smoke: --phases ran a subset; no result line",
+              file=sys.stderr)
+        return 4
+    for k in kernels:
+        k["launches_by_path"] = {path: n.get(k["name"], 0)
+                                 for path, n in by_path.items()}
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1019,4 +1706,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -181,3 +181,51 @@ def test_nms_kernel_single_band_shapes(cuda):
         s, i = nms_topk(m, k, -1.0)
         ps, pi = nms_topk_plain(m, k, -1.0)
         assert torch.equal(s, ps) and torch.equal(i, pi), shape
+
+
+@pytest.fixture
+def last_gpu(cuda):
+    """The last visible GPU, with GPU 0 current: the wrappers must launch
+    on their tensors' device, not the current one (on a one-GPU machine
+    both are GPU 0)."""
+    torch.cuda.set_device(0)
+    return torch.device("cuda", torch.cuda.device_count() - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_launch_on_their_tensors_device(last_gpu, dtype):
+    bits = torch.from_numpy(packed_bits("random", 4)).to(last_gpu)
+    got = unpack_bits(bits, dtype)
+    assert got.device == last_gpu
+    assert torch.equal(got, unpack_bits_plain(bits, dtype))
+    rates = torch.full((4, 2), 0.1, device=last_gpu)
+    assert torch.equal(unpack_noise(bits, rates, 5, dtype),
+                       unpack_noise_plain(bits, rates, 5, dtype))
+    maps = torch.randn(4, 128, 128, device=last_gpu,
+                       generator=torch.Generator(device=last_gpu)
+                       .manual_seed(0)).to(dtype)
+    for got, want in zip(nms_topk_pair(maps, 128, maps, 160, -1.0),
+                         (nms_topk_plain(maps, 128, -1.0),
+                          nms_topk_plain(maps, 160, -1.0))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    peaks.null_launch(4, 128, 128, 160, device=last_gpu)
+    torch.cuda.synchronize(last_gpu)
+    assert torch.cuda.current_device() == 0
+
+
+def test_int8_conv_is_exact_on_the_card(cuda):
+    """infer/quant.py's im2col + torch._int_mm against a float64 conv of
+    the same int8 tensors: exact (K = 9 x 512 = 4608 terms)."""
+    from abcnet_tpu_torch.infer.quant import conv_int8, convt_int8
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(-127, 128, (2, 16, 16, 512), generator=gen,
+                      device=cuda, dtype=torch.int8)
+    k = torch.randint(-127, 128, (3, 3, 512, 64), generator=gen,
+                      device=cuda, dtype=torch.int8)
+    x64 = x.double().permute(0, 3, 1, 2)
+    want = torch.nn.functional.conv2d(x64, k.double().permute(3, 2, 0, 1),
+                                      padding=1).permute(0, 2, 3, 1)
+    assert torch.equal(conv_int8(x, k).double(), want)
+    w = torch.flip(k.double(), (0, 1)).permute(2, 3, 0, 1)
+    want = torch.nn.functional.conv_transpose2d(x64, w, stride=2)
+    assert torch.equal(convt_int8(x, k).double(), want.permute(0, 2, 3, 1))

@@ -419,7 +419,8 @@ def test_create_state_is_seeded_and_single_device():
         assert torch.equal(p, q), n
     assert a.optimizer.defaults["weight_decay"] == 1e-8
     assert a.optimizer.defaults["eps"] == 1e-8
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    # more than one device needs a process group (tests/test_torch_parallel)
+    with pytest.raises(RuntimeError, match="data-parallel"):
         trainer.create_state(trainer.TrainConfig(device="cpu", n_devices=2))
 
 
