@@ -9,10 +9,10 @@ mask for serving and evaluation, and kernel 2 (ops/noise.py) unpacks it
 and adds the per-image salt/pepper noise for training. Dense targets are
 scatter-built on the device from the compact labels (ops/targets.py).
 
-Sources: `load_csv_dataset` (a dataset directory in the reference CSV
-format), `synthetic_batch` (random pixels, for benchmarks). The
-on-the-fly molecule generator (data/generate.py and what it draws with)
-is not ported yet; `Sample`, its output record, lives here until it is.
+Sources: the molecule generator (data/generate.py, whose record
+`Sample` this module re-exports), `load_csv_dataset` (a dataset
+directory in the reference CSV format), `synthetic_batch` (random
+pixels, for benchmarks).
 """
 
 from __future__ import annotations
@@ -32,19 +32,12 @@ from ..ops.noise import SEED_MAX, unpack_noise
 from ..ops.unpack import unpack_bits
 from . import raster, vocab
 from .augment import AugmentParams
+from .degrade import random_degrade
 from .encode import (MAX_ATOMS, MAX_BONDS, compact_labels,
                      parse_atoms_string, parse_bonds_string)
+from .generate import Sample
 
 SIZE = 512
-
-
-@dataclass
-class Sample:
-    """One labelled drawing, as the generator and the dataset CSV give it."""
-    image: np.ndarray          # (512, 512) uint8 grayscale
-    atoms_string: str
-    bonds_string: str
-    smiles: str                # canonical ground truth
 
 
 @dataclass
@@ -82,15 +75,20 @@ def _geometric_augment(img_u8: np.ndarray, rng: random.Random,
 
 def sample_to_example(sample: Sample, rng: random.Random,
                       train: bool = True,
-                      degrade_p: float = 0.0) -> Example:
+                      degrade_p: float = 0.0,
+                      degrade_hard: bool = False) -> Example:
     """Geometric augment (train only) + compact labels. degrade_p > 0
-    would apply one scan-style degradation (data/degrade.py of the JAX
-    package) to that fraction of training images; that module is not
-    ported yet, so it raises."""
-    if degrade_p > 0:
-        raise NotImplementedError(
-            "degrade_p > 0 needs data/degrade.py, which is not ported yet")
+    applies one scan-style degradation (blur / erode / downscale / JPEG,
+    data/degrade.py) to that fraction of training images, after the
+    geometric augment and before binarization; label coordinates are
+    unaffected. Default 0 keeps the reference's salt/pepper-only
+    training recipe (src/utils.py:73-80). degrade_hard=True draws from
+    the hard-tail regime (blur/erode biased; see
+    degrade.random_degrade). The draws from `rng` are the JAX package's
+    (abcnet_tpu/data/pipeline.py:76-90)."""
     img, p = _geometric_augment(sample.image, rng, train)
+    if train and degrade_p > 0 and rng.random() < degrade_p:
+        img = random_degrade(img, rng, hard=degrade_hard)
     atoms = parse_atoms_string(sample.atoms_string)
     bonds = parse_bonds_string(sample.bonds_string)
     labels = compact_labels(atoms, bonds, p.scale_x, p.scale_y,

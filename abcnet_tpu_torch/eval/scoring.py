@@ -12,8 +12,9 @@ all computed with the package's own chem stack (no RDKit).
 from __future__ import annotations
 
 import csv
+import functools
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 from ..chem import canonical_smiles, from_smiles
 from ..chem.fingerprint import morgan_dice
@@ -39,12 +40,41 @@ class ScoreReport:
                 f"decode_rate={self.decode_rate:.4f}")
 
 
+@functools.lru_cache(maxsize=8192)
+def _score_pair(truth: str, pred: str) -> Tuple[bool, bool, bool, float]:
+    """(isomeric equal, non-isomeric equal, tautomer-insensitive equal,
+    Dice contribution) of one decoded pair. A pure function of two
+    strings, cached: the tautomer enumeration of a wrong prediction takes
+    up to seconds, and an evaluation scores the same pair several times
+    (per lineage and overall, two assemblers that mostly agree)."""
+    try:
+        iso_eq = canonical_smiles(truth) == canonical_smiles(pred)
+        noniso_eq = (canonical_smiles(truth, isomeric=False)
+                     == canonical_smiles(pred, isomeric=False))
+    except Exception:
+        return False, False, False, 0.0
+    if iso_eq:
+        return True, noniso_eq, True, 1.0
+    tt = canonicalize_tautomer_smiles(truth)
+    tp = canonicalize_tautomer_smiles(pred)
+    if tt is not None and tt == tp:
+        return False, noniso_eq, True, 1.0
+    try:
+        return False, noniso_eq, False, morgan_dice(from_smiles(truth),
+                                                    from_smiles(pred))
+    except Exception:
+        return False, noniso_eq, False, 0.0
+
+
 def score_pairs(truths: Sequence[str],
                 preds: Sequence[Optional[str]]) -> ScoreReport:
     """The three cal_acc.py counters, computed independently per pair:
     metric 2 compares NON-isomeric canonicals (stereo stripped,
     cal_acc.py:35-36); the isomeric comparison is reported as an extra
-    (stricter) column since this framework decodes stereo."""
+    (stricter) column since this framework decodes stereo. A pair whose
+    canonicalization raises counts as decoded and as a miss; the Dice sum
+    adds the per-pair terms in row order, as the JAX package's loop
+    does."""
     assert len(truths) == len(preds)
     n = len(truths)
     hits_taut = 0
@@ -56,28 +86,11 @@ def score_pairs(truths: Sequence[str],
         if pred is None:
             continue
         decoded += 1
-        try:
-            iso_eq = canonical_smiles(truth) == canonical_smiles(pred)
-            noniso_eq = (canonical_smiles(truth, isomeric=False)
-                         == canonical_smiles(pred, isomeric=False))
-        except Exception:
-            continue
+        iso_eq, noniso_eq, taut_eq, dice = _score_pair(truth, pred)
         hits_iso += iso_eq
         hits_noniso += noniso_eq
-        if iso_eq:
-            hits_taut += 1
-            dice_sum += 1.0
-            continue
-        tt = canonicalize_tautomer_smiles(truth)
-        tp = canonicalize_tautomer_smiles(pred)
-        if tt is not None and tt == tp:
-            hits_taut += 1
-            dice_sum += 1.0
-            continue
-        try:
-            dice_sum += morgan_dice(from_smiles(truth), from_smiles(pred))
-        except Exception:
-            pass
+        hits_taut += taut_eq
+        dice_sum += dice
     # All rates divide by n (total pairs), NOT by the decoded count —
     # deliberate reference parity: cal_acc.py:45-51 averages over every
     # row, so an undecodable image counts as a miss, and the Dice mean
@@ -106,13 +119,20 @@ def write_results_csv(path: str, truths: Sequence[str],
 
 def read_results_csv(path: str):
     """(truths, preds) of a results CSV; an empty prediction is None.
-    Truths come from a `smiles` column."""
+    Truths come from a `smiles` column or, where there is none, from an
+    `InChI` column converted through chem/inchi.py (an empty cell gives
+    None): the reference's multiprocessing decoder scores against InChI
+    truths (multi_proc_img2smiles2.py:329-352), as the JAX package's
+    cal-acc does (abcnet_tpu/__main__.py:176-189)."""
     with open(path, newline="") as f:
-        rows = list(csv.DictReader(f))
-    if rows and "smiles" not in rows[0]:
-        if "InChI" in rows[0]:
-            raise SystemExit("InChI truths need the InChI reader, which "
-                             "comes with a later slice of the port")
-        raise SystemExit("results csv needs a 'smiles' column")
-    return ([r["smiles"] for r in rows],
-            [r["smiles_pred"] or None for r in rows])
+        reader = csv.DictReader(f)
+        rows = list(reader)
+        cols = reader.fieldnames or []
+    preds = [r["smiles_pred"] or None for r in rows]
+    if "smiles" in cols:
+        return [r["smiles"] for r in rows], preds
+    if "InChI" in cols:
+        from ..chem.inchi import inchi_to_smiles
+        return [inchi_to_smiles(r["InChI"]) if r["InChI"] else None
+                for r in rows], preds
+    raise SystemExit("results csv needs a 'smiles' or 'InChI' column")

@@ -69,7 +69,27 @@ per phase:
      fixture images, the 64 molecules served through the int8 backbone;
      exact match beside bf16, the int8 trunk's time against the bf16
      trunk's, int32 accumulators against a float64 conv on the card;
- 12. the card line of nvidia-smi, then the kernels line, then the result.
+ 12. generator (no GPU work): the port's molecule generator on the card's
+     host makes the JAX package's data: the two held-out pools of
+     final_eval (seeds 777001 rdkit, 777002 indigo, 256 each) against the
+     512 truths of logs/final_eval_step43100.csv, the first 32 of each
+     against the fixtures' label strings, SMILES and drawings (images
+     reported as bit-equal counts and differing-pixel shares, with the
+     Pillow and FreeType versions), every (mode, engine) stream and the
+     corpus mode against assets/gen_digests.npz; samples per second;
+ 13. final_eval: the n=256 evaluation (eval/final_eval.py) in bf16 on the
+     snapshot over those pools: heatmap metrics per lineage, exact /
+     exact_canonical / dice / decode rate per lineage and overall with
+     the sub-cell and the integer-cell assembler, row-by-row agreement
+     with the TPU's smiles_pred; gates: overall exact >= the TPU's 0.8379
+     - 0.02, decode rate >= 0.99, one unpack and one NMS launch per
+     serving batch;
+ 14. cli_loop, through the port's main() in a temporary directory: gen ->
+     train --synthetic -> img2smiles -> test-acc -> cal-acc on the
+     results CSV and on a copy with InChI truths; then test-acc's counting
+     in f32 (TF32 off) on fixture rows 0-15 against the JAX package's
+     counts (assets/test_acc_step43100.npz);
+ 15. the card line of nvidia-smi, then the kernels line, then the result.
 
 Every new path is driven with the kernels' launch counts set to 0 just
 before it and read just after (`launches_by_path` of the kernels line).
@@ -133,6 +153,20 @@ QUANT_EXACT_SLACK = 4 / 64
 # allows against JAX)
 MESH_BLOCKS = 4
 MESH_SMILES_SLACK = 2
+# generator: molecules per held-out pool of final_eval; the largest share
+# of an image's pixels that may differ from the fixture's drawing (engine A
+# draws labels with Pillow and FreeType, whose builds may differ).
+GEN_POOL_N = 256
+PIXEL_SHARE_MAX = 0.01
+# final_eval: the TPU's overall bf16 exact match on the same 512 molecules
+# (logs/final_eval_r5e.log) is the reference; the port may be 2 points
+# below it (a different conv summation order flips near-tie peaks).
+FINAL_EVAL_TPU_EXACT = 0.8379
+FINAL_EVAL_SLACK = 0.02
+FINAL_EVAL_DECODE_MIN = 0.99
+# cli_loop: test-acc's f32 counts on fixture rows 0-15 against the JAX
+# package's, each within max(2, 1%) (near-tie peaks of f32 logits).
+TESTACC_ABS, TESTACC_REL = 2, 0.01
 
 
 def emit(phase, **kw):
@@ -1605,6 +1639,385 @@ def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 5: the generator, the n=256 evaluation, the CLI loop
+# ---------------------------------------------------------------------------
+
+def _sha(b):
+    import hashlib
+
+    import numpy as np
+    return np.frombuffer(hashlib.sha256(b).digest(), np.uint8)
+
+
+def _sample_digests(s):
+    """(image, atoms, bonds, smiles) sha256 digests of a Sample (of b"" for
+    None), as tests/test_torch_gen_fixture.py makes them."""
+    import numpy as np
+    if s is None:
+        return [_sha(b"")] * 4
+    return [_sha(np.ascontiguousarray(s.image).tobytes()),
+            _sha(s.atoms_string.encode()), _sha(s.bonds_string.encode()),
+            _sha(s.smiles.encode())]
+
+
+def _digest_check(generate_sample, z):
+    """The port's streams and corpus against gen_digests.npz: per stream,
+    samples whose labels and SMILES are equal, images equal, attempts and
+    the rng state after the stream; per corpus entry the same."""
+    import random
+
+    import numpy as np
+
+    fields = ("image", "atoms", "bonds", "smiles")
+    n = z["image"].shape[1]
+    streams = []
+    for i, (mode, engine, seed) in enumerate(zip(
+            z["modes"].tolist(), z["engines"].tolist(), z["seeds"].tolist())):
+        rng = random.Random(seed)
+        got, attempts = [], 0
+        while len(got) < n:
+            s = generate_sample(rng, mode=mode, engine=engine)
+            attempts += 1
+            if s is not None:
+                got.append(_sample_digests(s))
+        eq = {f: sum(np.array_equal(g[j], z[f][i, k])
+                     for k, g in enumerate(got))
+              for j, f in enumerate(fields)}
+        streams.append({
+            "mode": mode, "engine": engine, "seed": seed, "n": n,
+            "labels_smiles_equal": min(eq["atoms"], eq["bonds"],
+                                       eq["smiles"]),
+            "images_equal": eq["image"],
+            "attempts_equal": attempts == int(z["attempts"][i]),
+            "rng_equal": bool(np.array_equal(
+                _sha(repr(rng.getstate()).encode()), z["rng"][i]))})
+    rng = random.Random(31)                       # CORPUS_SEED of the fixture
+    found = [generate_sample(rng, smiles=smi) for smi in z["corpus"].tolist()]
+    corpus = {"n": len(found),
+              "truth_equal": sum((s.smiles if s else "") == t for s, t in
+                                 zip(found, z["corpus_truth"].tolist()))}
+    for j, f in enumerate(fields):
+        corpus[f"{f}_equal"] = sum(
+            np.array_equal(_sample_digests(s)[j], z[f"corpus_{f}"][k])
+            for k, s in enumerate(found))
+    return streams, corpus
+
+
+def phase_generator(torch):
+    """The port's generator on the card's host (no GPU work): the two
+    held-out pools of final_eval against the truths of the TPU's results
+    CSV, the fixture molecules' labels and drawings, the digest fixture of
+    every (mode, engine) stream and the corpus mode; the generation rate."""
+    import csv
+
+    import numpy as np
+    import PIL
+    from PIL import features
+
+    from abcnet_tpu_torch.data.generate import (generate_sample,
+                                                generate_samples)
+    from abcnet_tpu_torch.eval.final_eval import POOLS
+
+    assets = os.path.join(HERE, "abcnet_tpu_torch", "assets")
+    fixture = np.load(os.path.join(assets, "smoke_step43100.npz"))
+    labels = np.load(os.path.join(assets, "train_step43100.npz"))
+    t0 = time.perf_counter()
+    pools = {mode: generate_samples(GEN_POOL_N, seed, mode)
+             for mode, seed in POOLS}
+    gen_s = time.perf_counter() - t0
+    with open(os.path.join(HERE, "logs", "final_eval_step43100.csv"),
+              newline="") as f:
+        rows = list(csv.DictReader(f))
+    # the CSV holds the rdkit pool in rows 0-255, the indigo pool after it
+    truths_equal = sum(s.smiles == rows[256 * j + i]["smiles"]
+                       for j, (mode, _) in enumerate(POOLS)
+                       for i, s in enumerate(pools[mode]))
+    n_pooled = sum(len(p) for p in pools.values())
+    first = [s for mode, _ in POOLS for s in pools[mode][:32]]
+    labels_equal = sum(
+        s.atoms_string == str(a) and s.bonds_string == str(b)
+        and s.smiles == str(m) for s, a, b, m in zip(
+            first, labels["atoms_string"], labels["bonds_string"],
+            labels["smiles"]))
+    shares = [float(np.mean(s.image != img))
+              for s, img in zip(first, fixture["images"])]
+    z = np.load(os.path.join(assets, "gen_digests.npz"))
+    t0 = time.perf_counter()
+    streams, corpus = _digest_check(generate_sample, z)
+    digest_s = time.perf_counter() - t0
+    n_digest = sum(s["n"] for s in streams) + corpus["n"]
+    b_equal = all(s["images_equal"] == s["n"] for s in streams
+                  if s["engine"] == "b")
+    labels_all = all(s["labels_smiles_equal"] == s["n"] and s["attempts_equal"]
+                     and s["rng_equal"] for s in streams) and \
+        corpus["truth_equal"] == corpus["n"] == corpus["atoms_equal"] \
+        == corpus["bonds_equal"] == corpus["smiles_equal"]
+    ok = (truths_equal == n_pooled == 2 * GEN_POOL_N
+          and labels_equal == len(first) and max(shares) < PIXEL_SHARE_MAX
+          and b_equal and labels_all)
+    emit("generator", ok=ok, pools={m: len(p) for m, p in pools.items()},
+         truths_equal_tpu_csv=truths_equal, csv_rows=len(rows),
+         fixture_labels_smiles_equal=labels_equal, fixture_n=len(first),
+         fixture_images_bit_equal=sum(x == 0 for x in shares),
+         fixture_max_differing_pixel_share=max(shares),
+         pillow=PIL.__version__, freetype=features.version("freetype2"),
+         digest_streams=streams, digest_corpus=corpus,
+         engine_b_images_bit_equal=b_equal,
+         samples_per_s=(n_pooled + n_digest) / (gen_s + digest_s),
+         pools_s=gen_s, digest_s=digest_s,
+         gate=f"truths {2 * GEN_POOL_N}/{2 * GEN_POOL_N} equal to "
+              "logs/final_eval_step43100.csv; fixture labels and SMILES "
+              f"64/64; every fixture image differs in < {PIXEL_SHARE_MAX} "
+              "of its pixels; every stream's and corpus entry's labels, "
+              "SMILES, attempts and rng state equal to the digests; engine "
+              "b images bit-equal",
+         note="one host thread of the card's machine; samples_per_s over "
+              "the pools and the digest streams")
+    if not ok:
+        raise AssertionError("the port's generator differs from the JAX "
+                             "package's data")
+    return pools
+
+
+def phase_final_eval(torch, pools):
+    """eval.final_eval in bf16 on the snapshot: per lineage the heatmap
+    metric suite through trainer.eval_step at batch 16, then the serving
+    loop at batch 16 with the sub-cell and the integer-cell assembler;
+    overall scores and the row-by-row agreement with the TPU's
+    smiles_pred of logs/final_eval_step43100.csv."""
+    import csv
+
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.eval import final_eval as fe
+    from abcnet_tpu_torch.eval.scoring import score_pairs
+    from abcnet_tpu_torch.models.weights import load_snapshot
+
+    def report(r):
+        return {"exact": r.exact_match,
+                "exact_canonical": r.exact_match_canonical,
+                "exact_isomeric": r.exact_match_isomeric,
+                "dice": r.tanimoto_like, "decode_rate": r.decode_rate,
+                "n": r.n}
+
+    model, step = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = fe.evaluate(model, pools=pools, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    per_lineage = {mode: {"heatmap": r.heatmap, "e2e": report(r.e2e),
+                          "e2e_int_cell": report(r.e2e_int),
+                          "serve_s": r.serve_s}
+                   for mode, r in results.items()}
+    truths, preds, preds_int = fe.overall(results)
+    allrep, allrep_int = score_pairs(truths, preds), \
+        score_pairs(truths, preds_int)
+    with open(os.path.join(HERE, "logs", "final_eval_step43100.csv"),
+              newline="") as f:
+        rows = list(csv.DictReader(f))
+    # the TPU's answer for each served row: rdkit in CSV rows 0-255, indigo
+    # after them
+    tpu = [rows[256 * j + i]["smiles_pred"]
+           for j, res in enumerate(results.values())
+           for i in range(len(res.truths))]
+    agree = sum((p or "") == t for p, t in zip(preds, tpu))
+    # every lineage's pool is a whole number of batches: each batch is
+    # unpacked once for the heatmap metrics and once for serving, and its
+    # two heatmaps go through one NMS launch
+    n_batches = len(truths) // fe.EVAL_BATCH
+    ok = (allrep.exact_match >= FINAL_EVAL_TPU_EXACT - FINAL_EVAL_SLACK
+          and allrep.decode_rate >= FINAL_EVAL_DECODE_MIN
+          and launches["unpack_bits"] == 2 * n_batches
+          and launches["nms_topk"] == n_batches
+          and launches["unpack_noise"] == 0)
+    emit("final_eval", ok=ok, snapshot_step=step, dtype="bfloat16",
+         batch=fe.EVAL_BATCH, per_lineage=per_lineage,
+         overall=report(allrep), overall_int_cell=report(allrep_int),
+         agree_with_tpu_smiles_pred=agree, n=len(truths),
+         tpu_reference={"exact": FINAL_EVAL_TPU_EXACT, "rdkit": 0.8906,
+                        "indigo": 0.7852, "decode_rate": 1.0,
+                        "source": "logs/final_eval_r5e.log"},
+         batches=n_batches, launches=launches, wall_s=wall,
+         gate=f"overall exact >= {FINAL_EVAL_TPU_EXACT} - {FINAL_EVAL_SLACK} "
+              f"(the TPU's); decode rate >= {FINAL_EVAL_DECODE_MIN}; per "
+              "batch of 16 one unpack launch for the heatmap metrics, and "
+              "one unpack and one NMS launch for serving",
+         mismatched_vs_tpu=[{"row": i, "port": p, "tpu": t} for i, (p, t)
+                            in enumerate(zip(preds, tpu)) if (p or "") != t])
+    if not ok:
+        raise AssertionError("the n=256 evaluation is below its gates")
+    return launches
+
+
+def _cli(argv):
+    """abcnet_tpu_torch's main(argv) with its standard output captured."""
+    import contextlib
+    import io
+
+    from abcnet_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    return buf.getvalue()
+
+
+def _score_fields(line):
+    """{field: value} of a printed ScoreReport line."""
+    return {k: float(v) for k, v in (t.split("=") for t in line.split())}
+
+
+def phase_cli_loop(torch):
+    """gen -> train --synthetic -> img2smiles -> test-acc -> cal-acc (truths
+    as SMILES and as InChI) through the port's main() in a temporary
+    directory; then test-acc's counting in f32 on fixture rows 0-15 against
+    the JAX package's counts (assets/test_acc_step43100.npz)."""
+    import csv
+    import random
+    import tempfile
+
+    import numpy as np
+
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT, per_class_totals
+    from abcnet_tpu_torch.chem.inchi import smiles_to_inchi
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.data.generate import Sample
+    from abcnet_tpu_torch.models.weights import load_snapshot
+    from abcnet_tpu_torch.train import trainer
+
+    by_path, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "ds")
+        t0 = time.perf_counter()
+        _cli(["gen", "--out", ds, "-n", "64", "--engine", "mix",
+              "--seed", "0"])
+        times["gen"] = time.perf_counter() - t0
+        with open(os.path.join(ds, "dataset.csv"), newline="") as f:
+            n_gen = sum(1 for _ in csv.DictReader(f))
+
+        # train --synthetic: every step's losses kept (fit calls the
+        # module's train_step), the noise kernel's launches counted
+        totals, terms, noisy = [], [], [0]
+        step_fn, metrics_fn = trainer.train_step, trainer.train_metrics_step
+
+        def recording_step(*a, **kw):
+            out = step_fn(*a, **kw)
+            totals.append(float(out[1]))
+            terms.append({k: float(v) for k, v in out[2].items()})
+            noisy[0] += 1
+            return out
+
+        def counting_metrics(*a, **kw):
+            noisy[0] += 1
+            return metrics_fn(*a, **kw)
+
+        ck = os.path.join(tmp, "ck")
+        trainer.train_step, trainer.train_metrics_step = \
+            recording_step, counting_metrics
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            train_out = _cli(["train", "--synthetic", "256", "-b", "64",
+                              "--epochs", "1", "--ckpt", ck])
+        finally:
+            trainer.train_step, trainer.train_metrics_step = \
+                step_fn, metrics_fn
+        torch.cuda.synchronize()
+        times["train_synthetic"] = time.perf_counter() - t0
+        by_path["gen_train_synthetic"] = read_launches()
+        ckpts = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+        finite = bool(totals) and all(
+            np.isfinite(t) for t in totals) and all(
+            np.isfinite(v) for d in terms for v in d.values())
+
+        results = os.path.join(tmp, "results.csv")
+        reset_launches()
+        t0 = time.perf_counter()
+        serve_out = _cli(["img2smiles", "--data", ds, "--out", results])
+        torch.cuda.synchronize()
+        times["img2smiles"] = time.perf_counter() - t0
+        by_path["img2smiles_gen"] = read_launches()
+        serve_score = _score_fields(serve_out.strip().splitlines()[-1])
+
+        reset_launches()
+        t0 = time.perf_counter()
+        test_acc_out = _cli(["test-acc", "--data", ds])
+        torch.cuda.synchronize()
+        times["test_acc"] = time.perf_counter() - t0
+        by_path["test_acc"] = read_launches()
+
+        inchi_csv = os.path.join(tmp, "results_inchi.csv")
+        with open(results, newline="") as f:
+            rows = list(csv.DictReader(f))
+        with open(inchi_csv, "w", newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow(["", "InChI", "smiles_pred"])
+            for r in rows:
+                w.writerow([r[""], smiles_to_inchi(r["smiles"]),
+                            r["smiles_pred"]])
+        t0 = time.perf_counter()
+        cal = _score_fields(_cli(["cal-acc", results]).strip())
+        cal_inchi = _score_fields(_cli(["cal-acc", inchi_csv]).strip())
+        times["cal_acc_both"] = time.perf_counter() - t0
+
+    # test-acc's counting in f32, TF32 off, on fixture rows 0-15
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assets = os.path.join(HERE, "abcnet_tpu_torch", "assets")
+    fixture = np.load(os.path.join(assets, "smoke_step43100.npz"))
+    labels = np.load(os.path.join(assets, "train_step43100.npz"))
+    want = np.load(os.path.join(assets, "test_acc_step43100.npz"))
+    rows16 = int(want["rows"])
+    rng = random.Random(0)
+    examples = [pipeline.sample_to_example(
+        Sample(fixture["images"][i], str(labels["atoms_string"][i]),
+               str(labels["bonds_string"][i]), str(labels["smiles"][i])),
+        rng, train=False) for i in range(rows16)]
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.float32)
+    got = {k: torch.stack(v).numpy() for k, v in per_class_totals(
+        model, examples, int(want["batch"])).items()}
+    count_diff = {g: int(np.abs(got[g] - want[f"counts_{g}"]).max())
+                  for g in want["groups"].tolist()}
+    count_ok = all(
+        (np.abs(got[g] - want[f"counts_{g}"])
+         <= np.maximum(TESTACC_ABS, TESTACC_REL * want[f"counts_{g}"])).all()
+        for g in want["groups"].tolist())
+
+    steps = len(totals)
+    noise = by_path["gen_train_synthetic"]["unpack_noise"]
+    same_metrics = ("exact_canonical", "decode_rate", "n", "decoded")
+    ok = (n_gen == 64 and finite and steps > 0 and noise == noisy[0]
+          and bool(ckpts) and "exact" in serve_score
+          and "== atom_type ==" in test_acc_out and count_ok
+          and all(cal[k] == cal_inchi[k] for k in same_metrics)
+          and cal == serve_score)
+    emit("cli_loop", ok=ok, gen_n=n_gen,
+         train={"steps": steps, "noisy_forward_passes": noisy[0],
+                "totals": totals, "finite": finite, "checkpoints": ckpts,
+                "first_line": train_out.strip().splitlines()[0]
+                if train_out.strip() else ""},
+         img2smiles=serve_score, cal_acc_smiles=cal, cal_acc_inchi=cal_inchi,
+         test_acc_report_lines=len(test_acc_out.strip().splitlines()),
+         test_acc_f32_rows=rows16, test_acc_f32_counts=
+         {g: v.tolist() for g, v in got.items()},
+         test_acc_f32_max_count_diff_vs_jax=count_diff,
+         launches_by_path=by_path, times_s=times,
+         gate="gen wrote 64; finite losses; unpack_noise launches == noisy "
+              "forward passes; a checkpoint; img2smiles scored, cal-acc of "
+              "its CSV prints its score; the InChI truths give the same "
+              "exact_canonical, decode rate, n and decoded (the InChI reader "
+              "drops stereo layers, so the stereo-aware exact, "
+              "exact_isomeric and dice are reported only); the f32 counts "
+              f"within max({TESTACC_ABS}, {TESTACC_REL} x count) of the JAX "
+              "package's")
+    if not ok:
+        raise AssertionError("the CLI loop failed its gates")
+    return by_path
+
+
 def main(argv):
     if argv[:1] == ["--ddp-worker"]:
         ddp_worker(*argv[1:3])
@@ -1684,6 +2097,18 @@ def main(argv):
             phase = "ddp_train"
             torch.cuda.empty_cache()
             by_path["ddp_fit_rank0"] = phase_ddp_train(torch, samples)
+        if want("generator") or want("final_eval"):
+            phase = "generator"
+            pools = phase_generator(torch)
+        if want("final_eval"):
+            phase = "final_eval"
+            torch.cuda.empty_cache()
+            by_path["final_eval"] = phase_final_eval(torch, pools)
+            del pools
+        if want("cli_loop"):
+            phase = "cli_loop"
+            torch.cuda.empty_cache()
+            by_path.update(phase_cli_loop(torch))
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         import traceback
         traceback.print_exc()

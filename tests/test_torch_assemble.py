@@ -108,7 +108,15 @@ def test_results_csv_matches_pandas_writer(tmp_path):
 
 
 def test_cal_acc_rejects_inchi_truths(tmp_path):
+    """InChI truths were refused until chem/inchi.py came to the port;
+    now they are converted as the JAX package's cal-acc converts them,
+    and only a CSV with neither truth column is refused."""
+    from abcnet_tpu.chem.inchi import inchi_to_smiles as jax_inchi_to_smiles
+
     p = tmp_path / "r.csv"
-    p.write_text(",InChI,smiles_pred\n0,InChI=1S/CH4/h1H4,C\n")
-    with pytest.raises(SystemExit, match="later slice"):
+    p.write_text(",InChI,smiles_pred\n0,InChI=1S/CH4/h1H4,C\n1,,CC\n")
+    assert scoring.read_results_csv(str(p)) == (
+        [jax_inchi_to_smiles("InChI=1S/CH4/h1H4"), None], ["C", "CC"])
+    p.write_text(",truth,smiles_pred\n0,C,C\n")
+    with pytest.raises(SystemExit, match="'smiles' or 'InChI'"):
         scoring.read_results_csv(str(p))

@@ -229,3 +229,57 @@ def test_int8_conv_is_exact_on_the_card(cuda):
     w = torch.flip(k.double(), (0, 1)).permute(2, 3, 0, 1)
     want = torch.nn.functional.conv_transpose2d(x64, w, stride=2)
     assert torch.equal(convt_int8(x, k).double(), want.permute(0, 2, 3, 1))
+
+
+def _fixture_samples(n):
+    import numpy as np
+
+    from abcnet_tpu_torch.data.generate import Sample
+    from torch_parity import FIXTURE, TRAIN_FIXTURE
+
+    z, lab = np.load(FIXTURE), np.load(TRAIN_FIXTURE)
+    return [Sample(z["images"][i], str(lab["atoms_string"][i]),
+                   str(lab["bonds_string"][i]), str(lab["smiles"][i]))
+            for i in range(n)]
+
+
+def test_test_acc_unpacks_once_per_batch(cuda):
+    """test-acc's route: one unpack kernel launch per batch, no NMS."""
+    import random
+
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT, per_class_totals
+    from abcnet_tpu_torch.data.pipeline import sample_to_example
+    from abcnet_tpu_torch.models.weights import load_snapshot
+
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, cuda, torch.bfloat16)
+    rng = random.Random(0)
+    examples = [sample_to_example(s, rng, train=False)
+                for s in _fixture_samples(32)]
+    before = (unpack_bits.launches, nms_topk.launches)
+    counts = per_class_totals(model, examples, 16)
+    torch.cuda.synchronize()
+    assert (unpack_bits.launches - before[0],
+            nms_topk.launches - before[1]) == (2, 0)
+    assert sorted(counts) == ["atom_charge", "atom_type", "bond_type"]
+    n_true = counts["atom_type"][3]
+    assert n_true.dtype == torch.int64 and int(n_true.sum()) > 0
+
+
+def test_final_eval_serving_launches_once_per_batch(cuda):
+    """final_eval's serving route: one unpack and one NMS launch per batch
+    of 16, both assemblers on the same peaks."""
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.eval import final_eval
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models.weights import load_snapshot
+
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, cuda, torch.bfloat16)
+    run = make_infer_pipeline(model, cuda)
+    samples = _fixture_samples(40)
+    before = (unpack_bits.launches, nms_topk.launches)
+    preds, preds_int = final_eval.serve_both(run, samples)
+    torch.cuda.synchronize()
+    assert (unpack_bits.launches - before[0],
+            nms_topk.launches - before[1]) == (3, 3)
+    assert len(preds) == len(preds_int) == 40
+    assert sum(p is not None for p in preds) >= 38

@@ -63,9 +63,22 @@ def test_sample_to_example_matches_jax(samples, train):
 
 
 def test_sample_to_example_refuses_the_unported_degradation(samples):
-    with pytest.raises(NotImplementedError, match="degrade"):
-        pipeline.sample_to_example(samples[0][0], random.Random(0),
-                                   degrade_p=0.5)
+    """degrade_p > 0 raised until data/degrade.py came to the port; now it
+    degrades as the JAX package does, with the same draws from the rng
+    (both regimes), and degrade_p = 0 leaves the drawing as it was."""
+    port, ref = samples
+    for hard in (False, True):
+        r_t, r_j = random.Random(5), random.Random(5)
+        for p, r in zip(port[:3], ref[:3]):
+            got = pipeline.sample_to_example(p, r_t, degrade_p=0.5,
+                                             degrade_hard=hard)
+            want = jax_pipeline.sample_to_example(r, r_j, degrade_p=0.5,
+                                                  degrade_hard=hard)
+            np.testing.assert_array_equal(got.image_u8, want.image_u8)
+            assert r_t.getstate() == r_j.getstate()
+    plain = pipeline.sample_to_example(port[0], random.Random(0),
+                                       train=False, degrade_p=1.0)
+    np.testing.assert_array_equal(plain.image_u8, port[0].image)
 
 
 def test_label_and_augment_copies_match_jax(samples):

@@ -477,8 +477,13 @@ def test_cli_train_two_steps_on_a_csv_dataset(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 2" in out
     assert "training on 3 samples, eval on 1" in out
-    with pytest.raises(NotImplementedError, match="generator"):
-        cli.main(["train", "--device", "cpu"])
+    # without --data the CLI trains on --synthetic N generated samples
+    cli.main(["train", "--synthetic", "2", "-b", "2", "--epochs", "1",
+              "--no-test-split", "--dtype", "float32", "--device", "cpu",
+              "--ckpt", str(tmp_path / "synthetic")])
+    assert "training on 2 samples, eval on 0" in capsys.readouterr().out
+    assert [p.name for p in (tmp_path / "synthetic").iterdir()] == \
+        ["step_00000001.pt"]
     with pytest.raises(SystemExit, match="dataset csv not found"):
         cli.main(["train", "--data", str(tmp_path / "none"), "--device",
                   "cpu"])
