@@ -9,16 +9,18 @@ test-acc.
         [--ckpt DIR] [--dtype bfloat16] [--no-test-split] [--resume DIR]
         [--device cuda]
     torchrun --nproc-per-node N -m abcnet_tpu_torch train ...
-    python -m abcnet_tpu_torch img2smiles --data DIR_OR_CSV [--ckpt NPZ]
+    python -m abcnet_tpu_torch img2smiles --data DIR_OR_CSV
+        [--ckpt NPZ_OR_DIR]
         [--out results.csv] [-b 64] [--processes 0] [--mesh N]
         [--threshold 0.6] [--dtype bfloat16] [--device cuda]
     python -m abcnet_tpu_torch cal-acc results.csv
-    python -m abcnet_tpu_torch test-acc --data DIR [--ckpt NPZ] [-b 16]
-        [--dtype bfloat16] [--device cuda]
+    python -m abcnet_tpu_torch test-acc --data DIR [--ckpt NPZ_OR_DIR]
+        [-b 16] [--dtype bfloat16] [--device cuda]
 
 The flags are those of abcnet_tpu's CLI (abcnet_tpu/__main__.py:263-320)
 plus --device; --ckpt of img2smiles and test-acc names a weight snapshot
-(.npz, default snapshots/r5_latest.npz). `gen` writes DIR/dataset.csv and
+(.npz, default snapshots/r5_latest.npz) or a checkpoint directory that
+`train --ckpt` wrote (its latest step_*.pt). `gen` writes DIR/dataset.csv and
 a PNG tree with the port's molecule generator (the JAX package's bytes
 for the same seed); `train --data DIR` reads such a directory, and
 without --data trains on --synthetic N samples generated from --seed.
@@ -168,7 +170,7 @@ def _cmd_img2smiles(args) -> None:
     from .data.pipeline import load_image_csv
     from .eval.scoring import score_pairs, write_results_csv
     from .infer.decode import make_infer_pipeline
-    from .models.weights import load_snapshot
+    from .models.weights import load_weights
     from .utils.device import resolve_device
 
     resolve_device(args.device)
@@ -176,8 +178,8 @@ def _cmd_img2smiles(args) -> None:
         else os.path.join(args.data, "dataset.csv")
     if not os.path.exists(csv_path):
         sys.exit(f"error: dataset csv not found: {csv_path}")
-    model, step = load_snapshot(args.ckpt, device=args.device,
-                                dtype=getattr(torch, args.dtype))
+    model, step = load_weights(args.ckpt, device=args.device,
+                               dtype=getattr(torch, args.dtype))
     print(f"weights: {args.ckpt} (step {step})", flush=True)
     images, truths = load_image_csv(csv_path)
     mesh = None
@@ -212,15 +214,15 @@ def _cmd_test_acc(args) -> None:
 
     from .data import pipeline
     from .eval.class_metrics import per_class_report
-    from .models.weights import load_snapshot
+    from .models.weights import load_weights
     from .utils.device import resolve_device
 
     dev = resolve_device(args.device)
     csv_path = os.path.join(args.data, "dataset.csv")
     if not os.path.exists(csv_path):
         sys.exit(f"error: dataset csv not found: {csv_path}")
-    model, step = load_snapshot(args.ckpt, device=dev,
-                                dtype=getattr(torch, args.dtype))
+    model, step = load_weights(args.ckpt, device=dev,
+                               dtype=getattr(torch, args.dtype))
     print(f"weights: {args.ckpt} (step {step})", flush=True)
     rng = random.Random(0)
     examples = [pipeline.sample_to_example(s, rng, train=False)
@@ -314,7 +316,8 @@ def main(argv=None) -> None:
                         "label columns optional — a plain (image, smiles) "
                         "CSV like the UOB benchmark works")
     i.add_argument("--ckpt", default=DEFAULT_SNAPSHOT,
-                   help="weight snapshot (.npz)")
+                   help="weight snapshot (.npz) or checkpoint "
+                        "directory (its latest step_*.pt)")
     i.add_argument("--out", default="results.csv")
     i.add_argument("-b", "--batch-size", type=int, default=64)
     i.add_argument("--processes", type=int, default=0)
@@ -340,7 +343,8 @@ def main(argv=None) -> None:
     ta.add_argument("--data", required=True,
                     help="dataset dir (dataset.csv inside)")
     ta.add_argument("--ckpt", default=DEFAULT_SNAPSHOT,
-                    help="weight snapshot (.npz)")
+                    help="weight snapshot (.npz) or checkpoint "
+                         "directory (its latest step_*.pt)")
     ta.add_argument("-b", "--batch-size", type=int, default=16)
     ta.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])

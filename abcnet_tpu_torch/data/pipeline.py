@@ -10,9 +10,11 @@ and adds the per-image salt/pepper noise for training. Dense targets are
 scatter-built on the device from the compact labels (ops/targets.py).
 
 Sources: the molecule generator (data/generate.py, whose record
-`Sample` this module re-exports), `load_csv_dataset` (a dataset
-directory in the reference CSV format), `synthetic_batch` (random
-pixels, for benchmarks).
+`Sample` this module re-exports, as it re-exports `Example` and
+`sample_to_example` of data/examples.py), `generate_examples` (its
+examples over a spawn pool of host processes), `load_csv_dataset` (a
+dataset directory in the reference CSV format), `synthetic_batch`
+(random pixels, for benchmarks).
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import os
 import queue
 import random
 import threading
-from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,70 +32,9 @@ import torch
 from ..ops.noise import SEED_MAX, unpack_noise
 from ..ops.unpack import unpack_bits
 from . import raster, vocab
-from .augment import AugmentParams
-from .degrade import random_degrade
-from .encode import (MAX_ATOMS, MAX_BONDS, compact_labels,
-                     parse_atoms_string, parse_bonds_string)
+from .encode import MAX_ATOMS, MAX_BONDS
+from .examples import SIZE, Example, _gen_chunk, _gen_one, sample_to_example
 from .generate import Sample
-
-SIZE = 512
-
-
-@dataclass
-class Example:
-    """One host-side training example: uint8 canvas + compact labels."""
-    image_u8: np.ndarray          # (512, 512) uint8, white background
-    labels: Dict[str, np.ndarray]
-    smiles: str = ""
-
-
-def _geometric_augment(img_u8: np.ndarray, rng: random.Random,
-                       train: bool, size: int = SIZE
-                       ) -> Tuple[np.ndarray, AugmentParams]:
-    """20%: one axis rescaled by U(0.8, 1), re-center-pad with white
-    (reference src/utils.py:47-61). Returns the uint8 canvas and the
-    params that transform label coordinates."""
-    scale_x = scale_y = 1.0
-    temp = img_u8
-    if train and rng.random() < 0.2:
-        if rng.random() < 0.5:
-            scale_x = rng.uniform(0.8, 1.0)
-            temp = raster.resize(temp, (int(scale_x * size), size))
-        else:
-            scale_y = rng.uniform(0.8, 1.0)
-            temp = raster.resize(temp, (size, int(scale_y * size)))
-    ddx = (size - temp.shape[0]) // 2
-    ddy = (size - temp.shape[1]) // 2
-    if temp.shape != (size, size):
-        canvas = np.full((size, size), 255, np.uint8)
-        canvas[ddx:ddx + temp.shape[0], ddy:ddy + temp.shape[1]] = temp
-    else:
-        canvas = temp
-    return canvas, AugmentParams(scale_x, scale_y, ddx, ddy)
-
-
-def sample_to_example(sample: Sample, rng: random.Random,
-                      train: bool = True,
-                      degrade_p: float = 0.0,
-                      degrade_hard: bool = False) -> Example:
-    """Geometric augment (train only) + compact labels. degrade_p > 0
-    applies one scan-style degradation (blur / erode / downscale / JPEG,
-    data/degrade.py) to that fraction of training images, after the
-    geometric augment and before binarization; label coordinates are
-    unaffected. Default 0 keeps the reference's salt/pepper-only
-    training recipe (src/utils.py:73-80). degrade_hard=True draws from
-    the hard-tail regime (blur/erode biased; see
-    degrade.random_degrade). The draws from `rng` are the JAX package's
-    (abcnet_tpu/data/pipeline.py:76-90)."""
-    img, p = _geometric_augment(sample.image, rng, train)
-    if train and degrade_p > 0 and rng.random() < degrade_p:
-        img = random_degrade(img, rng, hard=degrade_hard)
-    atoms = parse_atoms_string(sample.atoms_string)
-    bonds = parse_bonds_string(sample.bonds_string)
-    labels = compact_labels(atoms, bonds, p.scale_x, p.scale_y,
-                            p.ddx, p.ddy)
-    return Example(img, labels, sample.smiles)
-
 
 def pack_images(images_u8: np.ndarray, threshold: float = 0.6) -> np.ndarray:
     """Binarize (ink = gray/255 < threshold, the reference's utils.py:63)
@@ -192,6 +132,32 @@ def device_unpack_bits(image_bits: torch.Tensor, train: bool = False,
     rates = draw_noise_rates(image_bits.shape[0], amount, dev, generator)
     seed = torch.randint(0, SEED_MAX, (1,), device=dev, generator=generator)
     return unpack_noise(image_bits, rates, seed, dtype)[..., None]
+
+
+def generate_examples(n: int, seed: int = 0, mode: str = "mixed",
+                      train: bool = True,
+                      processes: Optional[int] = None) -> List[Example]:
+    """Generate n examples, fanned out over a process pool (the
+    reference's dataloader-worker role, train.py:44); the JAX package's
+    list for the same arguments (abcnet_tpu/data/pipeline.py:195-216).
+    Serial below 32 examples or with one process; otherwise chunk w of
+    ceil(n / processes) examples comes from random.Random(seed + 7919·w).
+    The pool is spawned, not forked: the parent may hold a live CUDA
+    context, which a forked child must not inherit. Its workers run
+    data/examples.py:_gen_chunk, which imports no torch, so they start
+    without it and touch no device."""
+    if processes is None:
+        processes = max(1, (os.cpu_count() or 4) - 2)
+    if processes <= 1 or n < 32:
+        rng = random.Random(seed)
+        return [_gen_one(rng, mode, train) for _ in range(n)]
+    import multiprocessing as mp
+    chunk = (n + processes - 1) // processes
+    args = [(seed + 7919 * w, min(chunk, n - w * chunk), mode, train)
+            for w in range(processes) if w * chunk < n]
+    with mp.get_context("spawn").Pool(len(args)) as pool:
+        parts = pool.starmap(_gen_chunk, args)
+    return [e for part in parts for e in part]
 
 
 def _read_gray(path: str) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Post-training evaluation: heatmap metric suite + end-to-end SMILES
 accuracy, overall and split by render lineage.
 
-    python -m abcnet_tpu_torch.eval.final_eval [n_per_mode] [--ckpt NPZ]
+    python -m abcnet_tpu_torch.eval.final_eval [n_per_mode] [--ckpt NPZ_OR_DIR]
         [--dtype bfloat16] [--device cuda] [--out CSV]
 
 Counterpart of the JAX package's scripts/final_eval.py. Held-out
@@ -38,7 +38,7 @@ from ..data.generate import Sample, generate_samples
 from ..eval.scoring import ScoreReport, score_pairs, write_results_csv
 from ..infer.assemble import assemble_batch
 from ..infer.decode import make_infer_pipeline
-from ..models.weights import load_snapshot
+from ..models.weights import load_weights
 from ..train import trainer
 from ..train.metrics import MeterBank
 from ..utils.device import resolve_device
@@ -135,7 +135,8 @@ def main(argv=None) -> None:
                                      "final_eval")
     p.add_argument("n_per_mode", nargs="?", type=int, default=256)
     p.add_argument("--ckpt", default=cli.DEFAULT_SNAPSHOT,
-                   help="weight snapshot (.npz)")
+                   help="weight snapshot (.npz) or checkpoint "
+                        "directory (its latest step_*.pt)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -143,13 +144,13 @@ def main(argv=None) -> None:
                                  "final_eval_step<step>.csv)")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
-    model, step = load_snapshot(args.ckpt, device=dev,
-                                dtype=getattr(torch, args.dtype))
+    model, step = load_weights(args.ckpt, device=dev,
+                               dtype=getattr(torch, args.dtype))
     out_csv = args.out or f"final_eval_step{step}.csv"
     if os.path.abspath(out_csv).startswith(LOGS_DIR + os.sep):
         sys.exit(f"error: {out_csv} is under {LOGS_DIR}, which holds the "
                  "JAX package's retained runs")
-    print(f"snapshot step {step} ({args.ckpt}), {args.dtype} on {dev}",
+    print(f"weights: {args.ckpt} (step {step}), {args.dtype} on {dev}",
           flush=True)
     results = evaluate(model, args.n_per_mode)
     truths, preds, preds_int = overall(results)

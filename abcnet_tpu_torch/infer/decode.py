@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from ..data import vocab
 from ..data.pipeline import device_unpack_bits, pack_images
 from ..ops.peaks import nms_topk, nms_topk_pair
+from ..parallel.mesh import replicate_tree
 from ..utils.device import resolve_device
 
 NO = vocab.NUM_OMEGA_BINS
@@ -470,13 +471,26 @@ def make_infer_pipeline(model, device="cuda",
     (waits for the copies to pinned host memory, builds the numpy dict;
     safe on a worker thread).
 
-    mesh: a single-process `parallel.Mesh` over several devices (the
-    multi-chip batched inference of abcnet_tpu/infer/decode.py:520-622):
-    a replica of the model on each, the batch cut into contiguous row
-    blocks (B must divide by the number of devices), each block's
-    unpack, U-Net, NMS/top-K, sparse heads and pack enqueued on its own
-    device; fetch joins the blocks in row order. Without it the pipeline
-    runs on `device`.
+    mesh: a `parallel.Mesh`; without it the pipeline runs on `device`.
+      * A single-process mesh over several devices (the multi-chip
+        batched inference of abcnet_tpu/infer/decode.py:520-622): a
+        replica of the model on each, the batch cut into contiguous row
+        blocks (B must divide by the number of devices), each block's
+        unpack, U-Net, NMS/top-K, sparse heads and pack enqueued on its
+        own device; fetch joins the blocks in row order.
+      * A rank's mesh in a process group (`parallel.init_distributed`,
+        mesh.world > 1; the JAX package's make_infer_pipeline after
+        jax.distributed.initialize): `model` is first replicated from
+        rank 0 in place (`parallel.replicate_tree`, a collective: every
+        rank builds its pipeline), so every rank serves rank 0's
+        weights. dispatch then takes this rank's rows only, the
+        process-local slice of a global batch (`parallel.local_rows`),
+        runs them on the rank's one device, and fetch returns their host
+        peak dict, for the rank's own assembly pool; gathering results
+        across ranks is the caller's business. Packed transport stays
+        on: JAX turns it off there only because its global array spans
+        shards a process cannot address, and a rank's buffers here are
+        its own.
 
     quant: an int8 bundle from infer.quant.prepare_quant: the backbone
     becomes the s8 x s8 -> s32 path; peak extraction and the sparse wide
@@ -491,6 +505,8 @@ def make_infer_pipeline(model, device="cuda",
                          "(sparse=True)")
     devices = tuple(mesh.devices) if mesh is not None \
         else (resolve_device(device),)
+    if mesh is not None and mesh.world > 1:
+        replicate_tree(model.to(devices[0]), mesh)
     cfg = decode_cfg or DecodeConfig()
     dtype = model.dtype
     replicas = []

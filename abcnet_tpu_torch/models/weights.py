@@ -198,6 +198,39 @@ def load_snapshot(path: str, device="cuda",
     z = np.load(path)
     step = int(z["__step__"])
     tree = _unflatten({k: z[k] for k in z.files if k != "__step__"})
-    model = model_for_tree(tree["params"], dtype)
-    model.load_state_dict(from_flax(tree["params"], tree["batch_stats"]))
-    return model.to(dev).eval(), step
+    return _model_from_tree(tree["params"], tree["batch_stats"], dtype,
+                            dev), step
+
+
+def load_weights(path: str, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16
+                 ) -> Tuple[torch.nn.Module, int]:
+    """The weights that `--ckpt` names: a snapshot .npz (`load_snapshot`)
+    or a checkpoint directory that `train --ckpt` wrote, whose latest
+    `step_*.pt` is read (the JAX CLI's restore_checkpoint takes the latest
+    too). A checkpoint's `model` entry is the state_dict of the unwrapped
+    module, with no DDP `module.` prefix: `trainer.save_checkpoint` saves
+    `state.model`, and a process group's DDP wrapper is `state.ddp`. It
+    goes through `to_flax` and `model_for_tree`, so every layout a
+    snapshot can hold loads from a checkpoint too. Returns (model in eval
+    mode on `device` with compute dtype `dtype`, training step); anything
+    else raises."""
+    if path.endswith(".npz"):
+        return load_snapshot(path, device, dtype)
+    if not os.path.isdir(path):
+        raise ValueError(f"--ckpt {path}: neither a weight snapshot (.npz) "
+                         "nor a checkpoint directory (step_*.pt)")
+    from ..train.trainer import checkpoint_path
+
+    dev = resolve_device(device)
+    ckpt = torch.load(checkpoint_path(path), map_location="cpu",
+                      weights_only=True)
+    params, stats = to_flax(ckpt["model"])
+    return _model_from_tree(params, stats, dtype, dev), int(ckpt["step"])
+
+
+def _model_from_tree(params: Dict, batch_stats: Dict, dtype: torch.dtype,
+                     dev: torch.device) -> torch.nn.Module:
+    model = model_for_tree(params, dtype)
+    model.load_state_dict(from_flax(params, batch_stats))
+    return model.to(dev).eval()

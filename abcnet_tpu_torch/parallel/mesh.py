@@ -11,12 +11,15 @@ is one process per GPU:
     environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
     MASTER_PORT): NCCL for CUDA, gloo for an explicit CPU run (tests);
   * `make_mesh` describes the devices this process drives, its rank and
-    the group. Training takes one device per rank; serving
-    (infer/decode.py, `img2smiles --mesh N`) drives N local GPUs from one
-    process, with no group;
-  * `shard_batch` gives a rank its contiguous rows of the global batch,
-    which every rank draws in the same seeded order, so W ranks see
-    exactly what one process at the global batch sees;
+    the group. Training takes one device per rank. Serving
+    (infer/decode.py) takes either kind: in one process without a group,
+    N local GPUs (`img2smiles --mesh N`), a row block each; in a process
+    group, one GPU per rank, each rank serving its own rows (the JAX
+    package's multi-host inference);
+  * `local_rows` is a rank's contiguous slice of a global batch, and
+    `shard_batch` gives a rank those rows of a global host batch, which
+    every rank draws in the same seeded order, so W ranks see exactly
+    what one process at the global batch sees;
   * `replicate_tree` broadcasts rank 0's parameters and buffers;
   * `sync_batchnorm` hands the group to every BatchNorm of a model, which
     then normalizes over the global batch (models/unet.py).
@@ -96,17 +99,22 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
     return Mesh(tuple(torch.device("cuda", i) for i in range(n)))
 
 
-def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
-    """This rank's rows [r·B/W, (r+1)·B/W) of a global host batch dict.
-    The batch size must divide by the world size (mesh.py:51-52 of the
+def local_rows(n_global: int, mesh: Mesh) -> slice:
+    """This rank's rows [r·B/W, (r+1)·B/W) of a global batch of B rows,
+    the process-local slice of the JAX package's multi-process
+    shard_batch. B must divide by the world size (mesh.py:51-52 of the
     JAX package)."""
-    b = len(next(iter(batch.values())))
-    if b % mesh.world:
-        raise ValueError(f"batch {b} does not divide over {mesh.world} "
-                         "ranks")
-    n = b // mesh.world
-    lo = mesh.rank * n
-    return {k: v[lo:lo + n] for k, v in batch.items()}
+    if n_global % mesh.world:
+        raise ValueError(f"batch {n_global} does not divide over "
+                         f"{mesh.world} ranks")
+    n = n_global // mesh.world
+    return slice(mesh.rank * n, (mesh.rank + 1) * n)
+
+
+def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's rows (`local_rows`) of a global host batch dict."""
+    rows = local_rows(len(next(iter(batch.values()))), mesh)
+    return {k: v[rows] for k, v in batch.items()}
 
 
 def replicate_tree(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:

@@ -432,9 +432,9 @@ def save_checkpoint(state: TrainState, ckpt_dir: str,
     return path
 
 
-def restore_checkpoint(state: TrainState, ckpt_dir: str,
-                       step: Optional[int] = None) -> TrainState:
-    """Restore the latest (or given-step) checkpoint into `state`."""
+def checkpoint_path(ckpt_dir: str, step: Optional[int] = None) -> str:
+    """The file of the latest (or given-step) checkpoint under
+    `ckpt_dir`; raises when the directory holds none."""
     root = os.path.abspath(ckpt_dir)
     if step is None:
         steps = sorted(int(f[len("step_"):-len(".pt")])
@@ -443,8 +443,14 @@ def restore_checkpoint(state: TrainState, ckpt_dir: str,
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {root}")
         step = steps[-1]
-    ckpt = torch.load(_ckpt_path(root, step), map_location=state.device,
-                      weights_only=True)
+    return _ckpt_path(root, step)
+
+
+def restore_checkpoint(state: TrainState, ckpt_dir: str,
+                       step: Optional[int] = None) -> TrainState:
+    """Restore the latest (or given-step) checkpoint into `state`."""
+    ckpt = torch.load(checkpoint_path(ckpt_dir, step),
+                      map_location=state.device, weights_only=True)
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])

@@ -62,6 +62,13 @@ per phase:
   9. mesh_serving: make_infer_pipeline over every visible GPU (four row
      blocks on a one-GPU machine), peak dicts bit-equal to the unsharded
      pipeline on each row block, SMILES against the whole batch, img/s;
+     multiproc_serving: two ranks of a process group (NCCL on two GPUs,
+     or both on the one card over gloo), each serving its 32 rows of the
+     fixture batch through make_infer_pipeline(mesh=the rank's mesh) and
+     assembling them in its own pool; rank 1 moves one statistic of its
+     weights, which the pipeline's replication from rank 0 undoes; peak
+     dicts bit-equal to the unsharded pipeline on each rank's row block,
+     SMILES against the whole batch, launches per rank, img/s per rank;
  10. variants (bf16, 512², batch 64, seeded init): UNetS2D and UNetCBAM
      take 5 train steps each, S2D also serves; fused_head_bank and
      remat_blocks beside the plain UNet, first-step losses against it;
@@ -77,6 +84,10 @@ per phase:
      reported as bit-equal counts and differing-pixel shares, with the
      Pillow and FreeType versions), every (mode, engine) stream and the
      corpus mode against assets/gen_digests.npz; samples per second;
+     data.pipeline.generate_examples over a spawn pool of 4 against the
+     serial concatenation of its chunks and the JAX package's list
+     (assets/examples_digests.npz), its rate with the pool and on one
+     thread;
  13. final_eval: the n=256 evaluation (eval/final_eval.py) in bf16 on the
      snapshot over those pools: heatmap metrics per lineage, exact /
      exact_canonical / dice / decode rate per lineage and overall with
@@ -86,7 +97,9 @@ per phase:
      serving batch;
  14. cli_loop, through the port's main() in a temporary directory: gen ->
      train --synthetic -> img2smiles -> test-acc -> cal-acc on the
-     results CSV and on a copy with InChI truths; then test-acc's counting
+     results CSV and on a copy with InChI truths; img2smiles and test-acc
+     --ckpt of the checkpoint directory train wrote, their peak dicts and
+     counts against the module fit left in memory; then test-acc's counting
      in f32 (TF32 off) on fixture rows 0-15 against the JAX package's
      counts (assets/test_acc_step43100.npz);
  15. the card line of nvidia-smi, then the kernels line, then the result.
@@ -158,6 +171,8 @@ MESH_SMILES_SLACK = 2
 # draws labels with Pillow and FreeType, whose builds may differ).
 GEN_POOL_N = 256
 PIXEL_SHARE_MAX = 0.01
+# generate_examples: the size of the list timed over the default pool
+EXAMPLES_BIG_N = 384
 # final_eval: the TPU's overall bf16 exact match on the same 512 molecules
 # (logs/final_eval_r5e.log) is the reference; the port may be 2 points
 # below it (a different conv summation order flips near-tie peaks).
@@ -167,6 +182,14 @@ FINAL_EVAL_DECODE_MIN = 0.99
 # cli_loop: test-acc's f32 counts on fixture rows 0-15 against the JAX
 # package's, each within max(2, 1%) (near-tie peaks of f32 logits).
 TESTACC_ABS, TESTACC_REL = 2, 0.01
+# multiproc_serving: two ranks, each serving its rows of the fixture batch
+# of 64 and assembling them in its own pool of MULTIPROC_POOL processes;
+# rank 1 moves one running statistic of its weights before its pipeline
+# replicates rank 0's. SMILES may flip against the whole-batch run as in
+# mesh_serving (MESH_SMILES_SLACK).
+MULTIPROC_RANKS = 2
+MULTIPROC_POOL = 2
+MOVED_STAT = "down4.double_conv.bn1.running_mean"
 
 
 def emit(phase, **kw):
@@ -1411,6 +1434,180 @@ def phase_mesh_serving(torch, fixture, bf16_model):
     return launches
 
 
+def multiproc_worker(out_path, backend):
+    """One rank of the multiproc_serving phase (started by
+    phase_multiproc_serving with RANK, WORLD_SIZE, LOCAL_RANK and MASTER_*
+    in its environment): the snapshot in bf16 (rank 1 moves MOVED_STAT
+    first), make_infer_pipeline on the rank's mesh, the rank's rows of the
+    fixture batch (`local_rows`) through the CLI's serving loop with the
+    rank's own assembly pool, then dispatch + fetch img/s."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT, img2smiles_loop
+    from abcnet_tpu_torch.infer.assemble import (assemble_batch,
+                                                 make_assembly_pool)
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models.weights import load_snapshot
+    from abcnet_tpu_torch.parallel import (init_distributed, local_rows,
+                                           make_mesh)
+
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    if backend == "gloo":
+        dist.init_process_group("gloo", rank=rank,
+                                world_size=int(os.environ["WORLD_SIZE"]))
+        mesh = make_mesh(device="cuda")
+    else:
+        mesh = init_distributed("cuda")
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.bfloat16)
+    if mesh.rank:
+        with torch.no_grad():
+            model.state_dict()[MOVED_STAT].add_(0.25)
+    run = make_infer_pipeline(model, "cuda", mesh=mesh)
+    checksum = sum(float(t.double().sum())
+                   for t in model.state_dict().values())
+    fixture = np.load(os.path.join(HERE, "abcnet_tpu_torch", "assets",
+                                   "smoke_step43100.npz"))
+    images = fixture["images"][local_rows(len(fixture["images"]), mesh)]
+    served = []
+    pool = make_assembly_pool(MULTIPROC_POOL)
+    try:
+        def assemble(peaks):
+            served.append(peaks)
+            return assemble_batch(peaks, pool=pool)
+
+        torch.cuda.synchronize()
+        reset_launches()
+        smiles = img2smiles_loop(run, list(images), len(images),
+                                 log_every=0, assemble=assemble)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        pool.close()
+        pool.join()
+    fresh = [np.roll(images, s, axis=2) for s in range(1, 9)]
+    run(fresh[0])
+    dist.barrier()
+    t0 = time.perf_counter()
+    for batch in fresh:
+        run(batch)
+    img_s = len(fresh) * len(images) / (time.perf_counter() - t0)
+    np.savez(out_path, **{f"peaks/{k}": v for k, v in served[0].items()},
+             smiles=np.array([p or "" for p in smiles]),
+             **{f"launches/{k}": np.int64(v) for k, v in launches.items()},
+             batches=np.int64(len(served)), checksum=np.float64(checksum),
+             moved=model.state_dict()[MOVED_STAT].float().cpu().numpy(),
+             rows=np.int64(len(images)), img_s=np.float64(img_s),
+             device=str(mesh.device))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_multiproc_serving(torch, fixture, bf16_model, bf16_preds):
+    """Two ranks of a process group, each serving its own rows through
+    make_infer_pipeline(mesh=the rank's mesh) (NCCL on two GPUs, or both
+    ranks on the one card over gloo). Gates: each rank's peak dict
+    bit-equal to this process's unsharded pipeline on the same row block;
+    the SMILES of both ranks against the whole-batch serving run; one
+    unpack and one NMS launch per rank per batch; both ranks hold rank 0's
+    weights (equal checksums, rank 1's moved statistic restored)."""
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+
+    gpus = torch.cuda.device_count()
+    backend = "nccl" if gpus >= MULTIPROC_RANKS else "gloo"
+    images = fixture["images"]
+    whole = make_infer_pipeline(bf16_model, "cuda")
+    blocks = [whole(b) for b in np.split(images, MULTIPROC_RANKS)]
+    snap_stat = bf16_model.state_dict()[MOVED_STAT].float().cpu().numpy()
+    torch.cuda.synchronize()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for rank in range(MULTIPROC_RANKS):
+            env = {**os.environ, "RANK": str(rank),
+                   "WORLD_SIZE": str(MULTIPROC_RANKS),
+                   "LOCAL_RANK": str(rank if backend == "nccl" else 0),
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multiproc-worker", os.path.join(tmp, f"rank{rank}.npz"),
+                 backend],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"a serving rank failed:\n{log[-4000:]}")
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(MULTIPROC_RANKS)]
+    wall = time.perf_counter() - t0
+    per_rank, equal, launches_ok = [], [], []
+    for r, (got, want) in enumerate(zip(ranks, blocks)):
+        peaks = {k[6:]: v for k, v in got.items() if k.startswith("peaks/")}
+        same = sorted(peaks) == sorted(want) and all(
+            peaks[k].dtype == want[k].dtype
+            and np.array_equal(peaks[k], want[k]) for k in want)
+        launches = {k[9:]: int(v) for k, v in got.items()
+                    if k.startswith("launches/")}
+        n_batches = int(got["batches"])
+        equal.append(same)
+        launches_ok.append(n_batches == 1 and launches == {
+            "unpack_bits": 1, "unpack_noise": 0, "nms_topk": 1})
+        per_rank.append({"device": str(got["device"]),
+                         "rows": int(got["rows"]), "batches": n_batches,
+                         "peaks_equal_blockwise": same,
+                         "launches": launches,
+                         "dispatch_fetch_img_per_s": float(got["img_s"]),
+                         "param_checksum": float(got["checksum"])})
+    smiles = [s for got in ranks for s in got["smiles"].tolist()]
+    agree = sum(a == b for a, b in zip(smiles, bf16_preds))
+    replicated = all(np.array_equal(got["moved"], snap_stat)
+                     for got in ranks) and \
+        len({float(got["checksum"]) for got in ranks}) == 1
+    ok = (all(equal) and all(launches_ok) and replicated
+          and len(smiles) == len(images)
+          and agree >= len(images) - MESH_SMILES_SLACK)
+    emit("multiproc_serving", ok=ok, ranks=MULTIPROC_RANKS, gpus=gpus,
+         backend=backend, global_batch=len(images),
+         assembly_pool_per_rank=MULTIPROC_POOL, per_rank=per_rank,
+         smiles_agree_with_whole_batch=agree,
+         replicated_rank0_weights=replicated, wall_s=wall,
+         gate="each rank's peak dict bit-equal to the unsharded pipeline on "
+              "its row block; SMILES of >= "
+              f"{len(images) - MESH_SMILES_SLACK}/{len(images)} equal to the "
+              "whole-batch run; one unpack and one NMS launch per rank per "
+              "batch; both ranks hold rank 0's weights",
+         note="img/s: dispatch + fetch of 8 fresh batches of a rank's rows, "
+              "no assembly, both ranks at once" + (
+                  "; both ranks share one card over gloo: no speed figure "
+                  "of multi-GPU serving" if backend == "gloo" else
+                  "; NCCL, one GPU per rank"))
+    if not ok:
+        raise AssertionError("multi-process serving differs from the "
+                             "unsharded run")
+    return {f"multiproc_serving_rank{r}": p["launches"]
+            for r, p in enumerate(per_rank)}
+
+
 def _train_variant(torch, trainer, model, batch, steps, rng0=0):
     """`steps` train_steps of `model` (bf16, batch 64) on one resident
     batch. Returns (state, totals, first step's losses, ms per step,
@@ -1704,6 +1901,69 @@ def _digest_check(generate_sample, z):
     return streams, corpus
 
 
+def _examples_check():
+    """generate_examples over a spawn pool on the card's host against the
+    serial concatenation of its chunks (_gen_chunk(seed + 7919·w, ...),
+    every image, label array and SMILES) and against the JAX package's
+    list for the same arguments (assets/examples_digests.npz: labels and
+    SMILES gated, images counted as engine A's drawings are); the rate of
+    the pool and of one thread."""
+    import numpy as np
+
+    from abcnet_tpu_torch.data.pipeline import _gen_chunk, generate_examples
+
+    z = np.load(os.path.join(HERE, "abcnet_tpu_torch", "assets",
+                             "examples_digests.npz"))
+    n, seed, procs = int(z["n"]), int(z["seed"]), int(z["processes"])
+    mode, train = str(z["mode"]), bool(z["train"])
+    t0 = time.perf_counter()
+    pooled = generate_examples(n, seed, mode, train, processes=procs)
+    pool_s = time.perf_counter() - t0
+    chunk = -(-n // procs)
+    t0 = time.perf_counter()
+    serial = [e for w in range(procs) if w * chunk < n for e in _gen_chunk(
+        seed + 7919 * w, min(chunk, n - w * chunk), mode, train)]
+    serial_s = time.perf_counter() - t0
+    equal = len(pooled) == len(serial) == n and all(
+        np.array_equal(a.image_u8, b.image_u8) and a.smiles == b.smiles
+        and sorted(a.labels) == sorted(b.labels) and all(
+            a.labels[k].dtype == b.labels[k].dtype
+            and np.array_equal(a.labels[k], b.labels[k]) for k in b.labels)
+        for a, b in zip(pooled, serial))
+
+    def labels_bytes(labels):
+        return b"".join(k.encode() + str(v.dtype).encode() +
+                        str(v.shape).encode() +
+                        np.ascontiguousarray(v).tobytes()
+                        for k, v in sorted(labels.items()))
+
+    vs_jax = {
+        "labels_equal": sum(np.array_equal(_sha(labels_bytes(e.labels)), d)
+                            for e, d in zip(pooled, z["labels"])),
+        "smiles_equal": sum(e.smiles == str(m)
+                            for e, m in zip(pooled, z["smiles"])),
+        "images_bit_equal": sum(
+            np.array_equal(_sha(np.ascontiguousarray(e.image_u8).tobytes()),
+                           d) for e, d in zip(pooled, z["image"]))}
+    # the rate of a larger list over the default pool (cpu_count - 2)
+    t0 = time.perf_counter()
+    big = generate_examples(EXAMPLES_BIG_N, seed, mode, train)
+    big_s = time.perf_counter() - t0
+    ok = equal and vs_jax["labels_equal"] == vs_jax["smiles_equal"] == n \
+        and len(big) == EXAMPLES_BIG_N
+    return ok, {"n": n, "seed": seed, "mode": mode, "train": train,
+                "processes": procs, "pool_equal_to_chunks": equal,
+                "vs_jax_digests": vs_jax, "pool_s": pool_s,
+                "one_thread_s": serial_s,
+                "pool_samples_per_s": n / pool_s,
+                "one_thread_samples_per_s": n / serial_s,
+                "default_pool": {"n": EXAMPLES_BIG_N,
+                                 "processes": max(1, (os.cpu_count() or 4)
+                                                  - 2),
+                                 "s": big_s,
+                                 "samples_per_s": EXAMPLES_BIG_N / big_s}}
+
+
 def phase_generator(torch):
     """The port's generator on the card's host (no GPU work): the two
     held-out pools of final_eval against the truths of the TPU's results
@@ -1753,9 +2013,10 @@ def phase_generator(torch):
                      and s["rng_equal"] for s in streams) and \
         corpus["truth_equal"] == corpus["n"] == corpus["atoms_equal"] \
         == corpus["bonds_equal"] == corpus["smiles_equal"]
+    examples_ok, examples = _examples_check()
     ok = (truths_equal == n_pooled == 2 * GEN_POOL_N
           and labels_equal == len(first) and max(shares) < PIXEL_SHARE_MAX
-          and b_equal and labels_all)
+          and b_equal and labels_all and examples_ok)
     emit("generator", ok=ok, pools={m: len(p) for m, p in pools.items()},
          truths_equal_tpu_csv=truths_equal, csv_rows=len(rows),
          fixture_labels_smiles_equal=labels_equal, fixture_n=len(first),
@@ -1765,15 +2026,20 @@ def phase_generator(torch):
          digest_streams=streams, digest_corpus=corpus,
          engine_b_images_bit_equal=b_equal,
          samples_per_s=(n_pooled + n_digest) / (gen_s + digest_s),
-         pools_s=gen_s, digest_s=digest_s,
+         pools_s=gen_s, digest_s=digest_s, generate_examples=examples,
          gate=f"truths {2 * GEN_POOL_N}/{2 * GEN_POOL_N} equal to "
               "logs/final_eval_step43100.csv; fixture labels and SMILES "
               f"64/64; every fixture image differs in < {PIXEL_SHARE_MAX} "
               "of its pixels; every stream's and corpus entry's labels, "
               "SMILES, attempts and rng state equal to the digests; engine "
-              "b images bit-equal",
+              "b images bit-equal; generate_examples over a spawn pool "
+              "equal to the serial concatenation of its chunks, its labels "
+              "and SMILES equal to the JAX package's list "
+              "(assets/examples_digests.npz)",
          note="one host thread of the card's machine; samples_per_s over "
-              "the pools and the digest streams")
+              "the pools and the digest streams; generate_examples: "
+              "examples (train augmentation and labels included) per "
+              "second with the pool, its spawn included, and on one thread")
     if not ok:
         raise AssertionError("the port's generator differs from the JAX "
                              "package's data")
@@ -1870,6 +2136,89 @@ def _score_fields(line):
     return {k: float(v) for k, v in (t.split("=") for t in line.split())}
 
 
+def serve_and_score_checkpoint(torch, ds, ck, tmp, module, times, by_path):
+    """img2smiles --ckpt CK and test-acc --ckpt CK on the gen set `ds`
+    through main(), the serving pipeline's host peak dicts and test-acc's
+    counts recorded on the way, against the same two paths on `module`,
+    the model fit left in memory. Launches counted under
+    img2smiles_ckpt and test_acc_ckpt."""
+    import random
+
+    import numpy as np
+
+    from abcnet_tpu_torch import __main__ as cli
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.infer import decode
+
+    served, counted = [], []
+    make, totals = decode.make_infer_pipeline, cli.per_class_totals
+
+    def recording_pipeline(*a, **kw):
+        run = make(*a, **kw)
+        fetch = run.fetch
+
+        def fetch_and_keep(handle):
+            served.append(fetch(handle))
+            return served[-1]
+        run.fetch = fetch_and_keep
+        return run
+
+    def recording_totals(*a, **kw):
+        counted.append(totals(*a, **kw))
+        return counted[-1]
+
+    decode.make_infer_pipeline = recording_pipeline
+    cli.per_class_totals = recording_totals
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        serve_out = _cli(["img2smiles", "--data", ds, "--ckpt", ck,
+                          "--out", os.path.join(tmp, "results_ck.csv")])
+        torch.cuda.synchronize()
+        times["img2smiles_ckpt"] = time.perf_counter() - t0
+        by_path["img2smiles_ckpt"] = read_launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        test_acc_out = _cli(["test-acc", "--data", ds, "--ckpt", ck])
+        torch.cuda.synchronize()
+        times["test_acc_ckpt"] = time.perf_counter() - t0
+        by_path["test_acc_ckpt"] = read_launches()
+    finally:
+        decode.make_infer_pipeline, cli.per_class_totals = make, totals
+    first = serve_out.strip().splitlines()[0]
+    printed = int(first.rsplit("(step ", 1)[1].rstrip(")"))
+    images, _ = pipeline.load_image_csv(os.path.join(ds, "dataset.csv"))
+    batch = 64                                # img2smiles' default -b
+    n_serve = -(-len(images) // batch)
+    run = make(module, "cuda")
+    want = [run(np.stack(images[i:i + batch]))
+            for i in range(0, len(images), batch)]
+    peaks_equal = len(served) == len(want) and all(
+        sorted(g) == sorted(w) and all(
+            g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+            for k in w) for g, w in zip(served, want))
+    rng = random.Random(0)
+    examples = [pipeline.sample_to_example(s, rng, train=False) for s in
+                pipeline.load_csv_dataset(os.path.join(ds, "dataset.csv"))]
+    batch_acc = 16                            # test-acc's default -b
+    want_counts = totals(module, examples, batch_acc)
+    counts_equal = len(counted) == 1 and sorted(counted[0]) == \
+        sorted(want_counts) and all(
+            torch.equal(a, b) for g in want_counts
+            for a, b in zip(counted[0][g], want_counts[g]))
+    n_acc = len(examples) // batch_acc
+    launches_ok = (by_path["img2smiles_ckpt"] == {
+        "unpack_bits": n_serve, "unpack_noise": 0, "nms_topk": n_serve}
+        and by_path["test_acc_ckpt"] == {
+            "unpack_bits": n_acc, "unpack_noise": 0, "nms_topk": 0})
+    return {"ok": peaks_equal and counts_equal and launches_ok,
+            "weights_line": first, "printed_step": printed,
+            "serving_batches": n_serve, "peaks_equal_in_memory": peaks_equal,
+            "test_acc_batches": n_acc, "counts_equal_in_memory": counts_equal,
+            "score": _score_fields(serve_out.strip().splitlines()[-1]),
+            "test_acc_report_lines": len(test_acc_out.strip().splitlines())}
+
+
 def phase_cli_loop(torch):
     """gen -> train --synthetic -> img2smiles -> test-acc -> cal-acc (truths
     as SMILES and as InChI) through the port's main() in a temporary
@@ -1899,9 +2248,11 @@ def phase_cli_loop(torch):
             n_gen = sum(1 for _ in csv.DictReader(f))
 
         # train --synthetic: every step's losses kept (fit calls the
-        # module's train_step), the noise kernel's launches counted
-        totals, terms, noisy = [], [], [0]
+        # module's train_step), the noise kernel's launches counted, the
+        # state that fit returns kept
+        totals, terms, noisy, fitted = [], [], [0], []
         step_fn, metrics_fn = trainer.train_step, trainer.train_metrics_step
+        fit_fn = trainer.fit
 
         def recording_step(*a, **kw):
             out = step_fn(*a, **kw)
@@ -1914,17 +2265,21 @@ def phase_cli_loop(torch):
             noisy[0] += 1
             return metrics_fn(*a, **kw)
 
+        def keeping_fit(*a, **kw):
+            fitted.append(fit_fn(*a, **kw))
+            return fitted[-1]
+
         ck = os.path.join(tmp, "ck")
-        trainer.train_step, trainer.train_metrics_step = \
-            recording_step, counting_metrics
+        trainer.train_step, trainer.train_metrics_step, trainer.fit = \
+            recording_step, counting_metrics, keeping_fit
         reset_launches()
         t0 = time.perf_counter()
         try:
             train_out = _cli(["train", "--synthetic", "256", "-b", "64",
                               "--epochs", "1", "--ckpt", ck])
         finally:
-            trainer.train_step, trainer.train_metrics_step = \
-                step_fn, metrics_fn
+            trainer.train_step, trainer.train_metrics_step, trainer.fit = \
+                step_fn, metrics_fn, fit_fn
         torch.cuda.synchronize()
         times["train_synthetic"] = time.perf_counter() - t0
         by_path["gen_train_synthetic"] = read_launches()
@@ -1948,6 +2303,13 @@ def phase_cli_loop(torch):
         torch.cuda.synchronize()
         times["test_acc"] = time.perf_counter() - t0
         by_path["test_acc"] = read_launches()
+
+        trained = fitted[0]
+        ckpt = serve_and_score_checkpoint(torch, ds, ck, tmp, trained.model,
+                                          times, by_path)
+        ckpt["fit_step"] = trained.step
+        del fitted, trained
+        torch.cuda.empty_cache()
 
         inchi_csv = os.path.join(tmp, "results_inchi.csv")
         with open(results, newline="") as f:
@@ -1993,13 +2355,15 @@ def phase_cli_loop(torch):
           and bool(ckpts) and "exact" in serve_score
           and "== atom_type ==" in test_acc_out and count_ok
           and all(cal[k] == cal_inchi[k] for k in same_metrics)
-          and cal == serve_score)
+          and cal == serve_score and ckpt["ok"]
+          and ckpt["printed_step"] == ckpt["fit_step"] == steps)
     emit("cli_loop", ok=ok, gen_n=n_gen,
          train={"steps": steps, "noisy_forward_passes": noisy[0],
                 "totals": totals, "finite": finite, "checkpoints": ckpts,
                 "first_line": train_out.strip().splitlines()[0]
                 if train_out.strip() else ""},
          img2smiles=serve_score, cal_acc_smiles=cal, cal_acc_inchi=cal_inchi,
+         trained_checkpoint=ckpt,
          test_acc_report_lines=len(test_acc_out.strip().splitlines()),
          test_acc_f32_rows=rows16, test_acc_f32_counts=
          {g: v.tolist() for g, v in got.items()},
@@ -2012,7 +2376,11 @@ def phase_cli_loop(torch):
               "drops stereo layers, so the stereo-aware exact, "
               "exact_isomeric and dice are reported only); the f32 counts "
               f"within max({TESTACC_ABS}, {TESTACC_REL} x count) of the JAX "
-              "package's")
+              "package's; img2smiles and test-acc --ckpt of the checkpoint "
+              "directory load the step fit ended at, their peak dicts and "
+              "counts equal to the module fit left in memory, bit for bit, "
+              "one unpack and one NMS launch per serving batch, one unpack "
+              "per test-acc batch")
     if not ok:
         raise AssertionError("the CLI loop failed its gates")
     return by_path
@@ -2021,6 +2389,9 @@ def phase_cli_loop(torch):
 def main(argv):
     if argv[:1] == ["--ddp-worker"]:
         ddp_worker(*argv[1:3])
+        return 0
+    if argv[:1] == ["--multiproc-worker"]:
+        multiproc_worker(*argv[1:3])
         return 0
     only = None
     if argv[:1] == ["--phases"]:
@@ -2084,6 +2455,10 @@ def main(argv):
             phase = "mesh_serving"
             by_path["mesh_serving"] = phase_mesh_serving(torch, fixture,
                                                          model)
+        if want("multiproc_serving"):
+            phase = "multiproc_serving"
+            by_path.update(phase_multiproc_serving(torch, fixture, model,
+                                                   bf16_preds))
         if want("quant_serving"):
             phase = "quant_serving"
             by_path["int8_serving"] = phase_quant_serving(
