@@ -1,5 +1,5 @@
-"""Command-line surface of the port: gen, train, img2smiles, cal-acc and
-test-acc.
+"""Command-line surface of the port: gen, train, img2smiles, cal-acc,
+test-acc and bench.
 
     python -m abcnet_tpu_torch gen --out DIR [-n 1000]
         [--mode mixed|rdkit|indigo] [--engine a|b|mix] [--seed 0]
@@ -16,21 +16,26 @@ test-acc.
     python -m abcnet_tpu_torch cal-acc results.csv
     python -m abcnet_tpu_torch test-acc --data DIR [--ckpt NPZ_OR_DIR]
         [-b 16] [--dtype bfloat16] [--device cuda]
+    python -m abcnet_tpu_torch bench [--batch 64] [--train-batch 64]
+        [--dense] [--skip-train] [--ckpt NPZ_OR_DIR] [--device cuda]
 
 The flags are those of abcnet_tpu's CLI (abcnet_tpu/__main__.py:263-320)
-plus --device; --ckpt of img2smiles and test-acc names a weight snapshot
-(.npz, default snapshots/r5_latest.npz) or a checkpoint directory that
-`train --ckpt` wrote (its latest step_*.pt). `gen` writes DIR/dataset.csv and
-a PNG tree with the port's molecule generator (the JAX package's bytes
-for the same seed); `train --data DIR` reads such a directory, and
-without --data trains on --synthetic N samples generated from --seed.
+plus --device, and bench's --ckpt; --ckpt of img2smiles, test-acc and
+bench names a weight snapshot (.npz, default snapshots/r5_latest.npz) or
+a checkpoint directory that `train --ckpt` wrote (its latest step_*.pt).
+`gen` writes DIR/dataset.csv and a PNG tree with the port's molecule
+generator (the JAX package's bytes for the same seed); `train --data DIR`
+reads such a directory, and without --data trains on --synthetic N
+samples generated from --seed.
 Under torchrun `train` runs as one rank of a data-parallel job (one
 process per GPU, -b the global batch; every rank generates the same
 samples and keeps its rows of every batch); `img2smiles --mesh N`
 shards every batch over N GPUs from one process. `cal-acc` scores a
 results CSV against its `smiles` or `InChI` truth column; `test-acc`
 prints the per-class precision/recall tables of the reference's
-test_accuracy.py.
+test_accuracy.py. `bench` prints one JSON record of serving and
+training throughput (bench.py in this package, the counterpart of the
+repo-root bench.py) and exits 1 with an `error` record on any failure.
 """
 
 from __future__ import annotations
@@ -266,6 +271,14 @@ def per_class_totals(model, examples, batch_size: int):
     return {k: tuple(x.cpu() for x in v) for k, v in acc.items()}
 
 
+def _cmd_bench(args) -> None:
+    from . import bench
+
+    code = bench.main(args)
+    if code:
+        raise SystemExit(code)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="abcnet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -351,6 +364,26 @@ def main(argv=None) -> None:
     ta.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ta.set_defaults(fn=_cmd_test_acc)
+
+    b = sub.add_parser("bench", help="serving and training throughput on "
+                                     "the GPU (one JSON record)")
+    b.add_argument("--batch", type=int, default=64,
+                   help="inference batch (the headline stays 64 for the "
+                        "BASELINE.json comparison; larger for sweeps)")
+    b.add_argument("--train-batch", type=int, default=64,
+                   help="training batch; 64, not the JAX bench's 128: batch "
+                        "128 runs out of an H100's 79.18 GiB in its first "
+                        "step, at 77.05-77.29 GiB allocated (chip_smoke.py "
+                        "phase bench_probe); batch 64 peaks at 44.25 GiB")
+    b.add_argument("--dense", action="store_true",
+                   help="A/B: dense head maps instead of the sparse "
+                        "peak-cell head evaluation")
+    b.add_argument("--skip-train", action="store_true")
+    b.add_argument("--ckpt", default=DEFAULT_SNAPSHOT,
+                   help="weight snapshot (.npz) or checkpoint directory "
+                        "served; the record names it")
+    b.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    b.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

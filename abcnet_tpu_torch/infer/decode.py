@@ -28,7 +28,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -456,6 +456,59 @@ def unpack_peaks_host(ibuf, fbuf, spec) -> Dict[str, np.ndarray]:
     return out
 
 
+@torch.no_grad()
+def device_peaks(model, bits: torch.Tensor, heads: Dict = None,
+                 quant: Dict = None,
+                 cfg: DecodeConfig = DecodeConfig()
+                 ) -> Dict[str, torch.Tensor]:
+    """The serving program on the device: packed bits (B, H, W//8) on
+    `model`'s device -> peak dict. Unpack (kernel 1) to the model's
+    compute dtype, the U-Net, NMS/top-K (kernel 2), then the six wide
+    heads at the peak cells (`heads`, from sparse_heads(model, dtype)) or,
+    with `heads` None, every head densely. `quant`, an int8 bundle on the
+    device (infer.quant), takes the backbone's place (sparse only; with
+    `heads` None it raises). make_infer_pipeline and the `bench`
+    sub-command both run it."""
+    if quant is not None and heads is None:
+        raise ValueError("the int8 backbone serves the sparse heads only; "
+                         "give `heads` with `quant`")
+    dtype = model.dtype
+    images = device_unpack_bits(bits, train=False, dtype=dtype)
+    if heads is None:
+        return extract_peaks(model(images), cfg)
+    if quant is not None:
+        from .quant import forward_quant
+        heatmaps, feats = forward_quant(quant, images)
+    else:
+        heatmaps, feats = model(images, dense_heads=DENSE_HEADS_SPARSE_MODE,
+                                return_features=True)
+    return extract_peaks_sparse(heatmaps, feats, heads, cfg, dtype)
+
+
+def copy_to_host(*tensors: torch.Tensor):
+    """Start copying `tensors` (on one device) into pinned host memory,
+    behind an event on the device's current stream; `host_arrays` waits
+    for the event and returns them as numpy arrays. Tensors on the CPU
+    are already there."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    hosts = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                  for t in tensors)
+    for h, t in zip(hosts, tensors):
+        h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(tensors[0].device))
+    return hosts, event
+
+
+def host_arrays(handle) -> List[np.ndarray]:
+    """The numpy arrays of a `copy_to_host` handle, once they are there."""
+    hosts, event = handle
+    if event is not None:
+        event.synchronize()
+    return [h.numpy() for h in hosts]
+
+
 def make_infer_pipeline(model, device="cuda",
                         decode_cfg: DecodeConfig = None,
                         threshold: float = 0.6, sparse: bool = True,
@@ -497,7 +550,6 @@ def make_infer_pipeline(model, device="cuda",
     heads are unchanged. Sparse mode only."""
     import copy
 
-    from .quant import forward_quant
     from .quant import to_device as quant_to_device
 
     if quant is not None and not sparse:
@@ -517,20 +569,6 @@ def make_infer_pipeline(model, device="cuda",
                          if quant is not None else None))
     spec_cache = {}
 
-    @torch.no_grad()
-    def _run(replica, bits: torch.Tensor) -> Dict[str, torch.Tensor]:
-        rep, heads, qbundle = replica
-        images = device_unpack_bits(bits, train=False, dtype=dtype)
-        if not sparse:
-            return extract_peaks(rep(images), cfg)
-        if qbundle is not None:
-            heatmaps, feats = forward_quant(qbundle, images)
-        else:
-            heatmaps, feats = rep(images,
-                                  dense_heads=DENSE_HEADS_SPARSE_MODE,
-                                  return_features=True)
-        return extract_peaks_sparse(heatmaps, feats, heads, cfg, dtype)
-
     def dispatch(image_u8):
         """Async half: pack on the host, copy each row block to its
         device, enqueue the device work and the copies of the peak
@@ -542,39 +580,26 @@ def make_infer_pipeline(model, device="cuda",
         if devices[0].type == "cuda":
             bits = bits.pin_memory()
         blocks = bits.chunk(len(devices))
-        parts, done = [], []
-        for replica, dev, block in zip(replicas, devices, blocks):
+        parts = []
+        for (rep, heads, qbundle), dev, block in zip(replicas, devices,
+                                                     blocks):
             with torch.cuda.device(dev) if dev.type == "cuda" \
                     else contextlib.nullcontext():
-                peaks = _run(replica, block.to(dev, non_blocking=True))
+                peaks = device_peaks(rep, block.to(dev, non_blocking=True),
+                                     heads, qbundle, cfg)
                 if "spec" not in spec_cache:
                     spec_cache["spec"] = peaks_spec(peaks)
-                ibuf, fbuf = pack_peaks(peaks)
-                if dev.type != "cuda":
-                    parts.append((ibuf, fbuf))
-                    continue
-                hi = torch.empty(ibuf.shape, dtype=ibuf.dtype,
-                                 pin_memory=True)
-                hf = torch.empty(fbuf.shape, dtype=fbuf.dtype,
-                                 pin_memory=True)
-                hi.copy_(ibuf, non_blocking=True)
-                hf.copy_(fbuf, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(dev))
-                parts.append((hi, hf))
-                done.append(event)
-        return parts, done
+                parts.append(copy_to_host(*pack_peaks(peaks)))
+        return parts
 
-    def fetch(handle):
+    def fetch(parts):
         """Blocking half: wait for the copies, return the host peak dict
         with the blocks' rows in order. The waits release the interpreter
         lock, so a fetch thread overlaps the main thread's dispatch and
         assembly."""
-        parts, done = handle
-        for event in done:
-            event.synchronize()
-        hi = np.concatenate([i.numpy() for i, _ in parts])
-        hf = np.concatenate([f.numpy() for _, f in parts])
+        arrays = [host_arrays(part) for part in parts]
+        hi = np.concatenate([i for i, _ in arrays])
+        hf = np.concatenate([f for _, f in arrays])
         return unpack_peaks_host(hi, hf, spec_cache["spec"])
 
     def run(image_u8):

@@ -102,12 +102,25 @@ per phase:
      counts against the module fit left in memory; then test-acc's counting
      in f32 (TF32 off) on fixture rows 0-15 against the JAX package's
      counts (assets/test_acc_step43100.npz);
- 15. the card line of nvidia-smi, then the kernels line, then the result.
+ 15. bench: `python -m abcnet_tpu_torch bench` (sparse, then its train
+     steps at the default --train-batch, 64) and `bench --dense
+     --skip-train` through the CLI's main(), each record printed, then
+     the bench's train steps alone (paths `bench_sparse`, `bench_dense`,
+     `bench_train`); gates: exit 0 and no error, the rates finite and
+     > 0, implied TFLOP/s <= the H100's 989, one unpack and one NMS
+     launch per call of the serving program and one noise launch per
+     train step, the default snapshot's weights in the records, and the
+     bench's program on the clean-carry batch of buffer 0 bit-equal to
+     make_infer_pipeline on its images;
+ 16. the card line of nvidia-smi, then the kernels line, then the result.
 
 Every new path is driven with the kernels' launch counts set to 0 just
 before it and read just after (`launches_by_path` of the kernels line).
 `--phases a,b` runs the environment phase and the named phases only (for
-iterating on the card); with no arguments every phase runs.
+iterating on the card); with no arguments every phase runs but
+`bench_probe`, which runs only when named: the JAX bench's train batch
+128 in a process of its own, the reading that chose bench's
+--train-batch default.
 
 Exits non-zero on any failed phase, and without a result when there is
 no CUDA device or no abcnet_tpu_torch package beside the script.
@@ -190,6 +203,12 @@ TESTACC_ABS, TESTACC_REL = 2, 0.01
 MULTIPROC_RANKS = 2
 MULTIPROC_POOL = 2
 MOVED_STAT = "down4.double_conv.bn1.running_mean"
+# bench: the port's --train-batch default, and the JAX bench's
+# (bench.py:62), which `--phases bench_probe` probes on the card in a
+# process of its own (it ran out of memory, so the port's default is
+# BATCH).
+BENCH_TRAIN_BATCH = BATCH
+BENCH_JAX_TRAIN_BATCH = 128
 
 
 def emit(phase, **kw):
@@ -2386,12 +2405,196 @@ def phase_cli_loop(torch):
     return by_path
 
 
+def bench_probe_worker(out_path, train_batch):
+    """The bench's train steps at `train_batch` in a process of their own
+    (phase_bench): the step ms and peak memory, or the out-of-memory and
+    the peak reached before it."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from abcnet_tpu_torch import bench
+
+    res = {"train_batch": int(train_batch)}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        step_s, peak = bench.train_bench(int(train_batch), "cuda",
+                                         torch.bfloat16)
+        res.update(fits=True, train_step_ms=step_s * 1e3, peak_gib=peak)
+    except torch.cuda.OutOfMemoryError as e:
+        res.update(fits=False,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   error=str(e).splitlines()[0][:400])
+    res["card_gib"] = torch.cuda.get_device_properties(0).total_memory \
+        / 2 ** 30
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _bench_cli(argv):
+    """`python -m abcnet_tpu_torch bench ARGV` through the CLI's main() in
+    this process: (exit code, record, seconds)."""
+    import contextlib
+    import io
+
+    from abcnet_tpu_torch.__main__ import main as cli_main
+
+    buf, code = io.StringIO(), 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli_main(["bench", *argv])
+        except SystemExit as e:
+            code = e.code
+    lines = buf.getvalue().strip().splitlines()
+    return code or 0, json.loads(lines[-1]), time.perf_counter() - t0
+
+
+def phase_bench_probe(torch):
+    """The JAX bench's train batch (BENCH_JAX_TRAIN_BATCH) probed in a
+    process of its own, so that an out-of-memory spoils nothing after it:
+    the step ms and peak memory, or the out-of-memory and the peak before
+    it. Runs only when named (`--phases bench_probe`); its one reading
+    chose bench's --train-batch default (BENCH_TRAIN_BATCH), whose help
+    text carries it."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    parent_reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "probe.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--bench-probe", out,
+             str(BENCH_JAX_TRAIN_BATCH)], capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(out):
+            raise RuntimeError(f"the train batch {BENCH_JAX_TRAIN_BATCH} "
+                               f"probe failed: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            probe = json.load(f)
+    emit("bench_probe", probe=probe, seconds=seconds,
+         parent_reserved_gib=parent_reserved_gib)
+
+
+def phase_bench(torch):
+    """The `bench` sub-command: `bench` (sparse, then its train steps at
+    the default --train-batch) and `bench --dense --skip-train` through
+    the CLI's main(), then the bench's train steps alone, launch counts
+    set to 0 before each and read after it; the records gated; the
+    bench's serving program on the clean-carry batch of buffer 0 against
+    make_infer_pipeline on its images, with the weights the records
+    name."""
+    import math
+
+    import numpy as np
+
+    from abcnet_tpu_torch import bench
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.infer.decode import (make_infer_pipeline,
+                                               sparse_heads)
+
+    times = {}
+    calls = min(bench.WARMUP, bench.N_BUFFERS) + 3 * bench.ITERS + 3
+    records, by_path, gates = {}, {}, {}
+    for mode, argv in (("sparse", []), ("dense", ["--dense",
+                                                  "--skip-train"])):
+        torch.cuda.empty_cache()
+        reset_launches()
+        code, rec, times[mode] = _bench_cli(argv)
+        n = read_launches()
+        records[mode] = rec
+        train = mode == "sparse"
+        rates = ["value", "sync_ips", "e2e_smiles_ips"] + (
+            ["train_step_ips"] if train else [])
+        gates[mode] = {
+            "exit_0_no_error": code == 0 and "error" not in rec,
+            "rates_finite_positive": all(
+                isinstance(rec.get(k), (int, float))
+                and math.isfinite(rec[k]) and rec[k] > 0 for k in rates),
+            "implied_tflops_le_peak": 0 < rec.get("implied_tflops", -1)
+            <= bench.H100_PEAK_TFLOPS,
+            "launches": n["unpack_bits"] == n["nms_topk"] == calls
+            and n["unpack_noise"] == (bench.TRAIN_STEPS if train else 0),
+            "weights_default_snapshot":
+                (rec.get("weights") or {}).get("path") == DEFAULT_SNAPSHOT,
+        }
+        if train:
+            gates[mode]["train_batch_default"] = \
+                rec.get("train_batch") == BENCH_TRAIN_BATCH
+        by_path[f"bench_{mode}"] = dict(n)
+        emit("bench_record", mode=mode, exit_code=code, record=rec,
+             launches=n, serving_calls=calls)
+
+    # The train steps alone, so that their path's counts are read apart
+    # from serving's.
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    step_s, peak = bench.train_bench(BENCH_TRAIN_BATCH, "cuda",
+                                     torch.bfloat16)
+    times["train"] = time.perf_counter() - t0
+    n = read_launches()
+    by_path["bench_train"] = dict(n)
+    gates["train"] = {
+        "launches": n["unpack_bits"] == n["nms_topk"] == 0
+        and n["unpack_noise"] == bench.TRAIN_STEPS,
+        "step_finite_positive": math.isfinite(step_s) and step_s > 0,
+    }
+    emit("bench_train", train_batch=BENCH_TRAIN_BATCH,
+         train_step_ms=step_s * 1e3, train_peak_gib=peak, launches=n)
+
+    # The clean-carry batch of buffer 0 is the served program's answer.
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    model, _ = bench.load_model(DEFAULT_SNAPSHOT, dev)
+    images = bench.real_batch_images(9000, BATCH)
+    bits = torch.from_numpy(pack_images(images, 0.6)).to(dev)
+    zero = torch.zeros((), dtype=torch.uint8, device=dev)
+    served = {}
+    for mode in ("sparse", "dense"):
+        heads = sparse_heads(model, model.dtype) if mode == "sparse" \
+            else None
+        got, _ = bench.serve_step(model, heads, bits, zero)
+        got = {k: v.cpu().numpy() for k, v in got.items()}
+        want = make_infer_pipeline(model, dev, sparse=mode == "sparse")(
+            images)
+        served[mode] = sorted(want) == sorted(got) and all(
+            want[k].dtype == got[k].dtype and np.array_equal(want[k], got[k])
+            for k in want)
+    times["served_check"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+
+    ok = all(all(g.values()) for g in gates.values()) and all(
+        served.values())
+    emit("bench", ok=ok, gates=gates,
+         clean_batch_equals_make_infer_pipeline=served,
+         launches_by_path=by_path, times_s=times,
+         gate="exit 0 and no error; value, sync_ips, e2e_smiles_ips (and "
+              "train_step_ips) finite and > 0; 0 < implied_tflops <= "
+              f"{bench.H100_PEAK_TFLOPS}; one unpack and one NMS launch per "
+              f"call of the serving program ({calls}), one noise launch per "
+              f"train step ({bench.TRAIN_STEPS}) in the sparse record and "
+              f"in the train steps alone; the default train batch "
+              f"{BENCH_TRAIN_BATCH}; the records' weights the default "
+              "snapshot; the clean-carry peak dict of buffer 0 bit-equal "
+              "to make_infer_pipeline on its images, sparse and dense")
+    if not ok:
+        raise AssertionError("the bench phase failed its gates")
+    return by_path
+
+
 def main(argv):
     if argv[:1] == ["--ddp-worker"]:
         ddp_worker(*argv[1:3])
         return 0
     if argv[:1] == ["--multiproc-worker"]:
         multiproc_worker(*argv[1:3])
+        return 0
+    if argv[:1] == ["--bench-probe"]:
+        bench_probe_worker(*argv[1:3])
         return 0
     only = None
     if argv[:1] == ["--phases"]:
@@ -2484,6 +2687,13 @@ def main(argv):
             phase = "cli_loop"
             torch.cuda.empty_cache()
             by_path.update(phase_cli_loop(torch))
+        if want("bench"):
+            phase = "bench"
+            torch.cuda.empty_cache()
+            by_path.update(phase_bench(torch))
+        if only is not None and "bench_probe" in only:
+            phase = "bench_probe"
+            phase_bench_probe(torch)
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         import traceback
         traceback.print_exc()

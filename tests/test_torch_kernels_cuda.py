@@ -283,3 +283,36 @@ def test_final_eval_serving_launches_once_per_batch(cuda):
             nms_topk.launches - before[1]) == (3, 3)
     assert len(preds) == len(preds_int) == 40
     assert sum(p is not None for p in preds) >= 38
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_bench_program_is_the_served_program(cuda, sparse):
+    """The bench's serving program at batch 64 on the card: one unpack and
+    one NMS launch, its clean-carry peak dict bit-equal to
+    make_infer_pipeline's on the same images."""
+    import numpy as np
+
+    from abcnet_tpu_torch import bench
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.infer.decode import (make_infer_pipeline,
+                                               sparse_heads)
+    from abcnet_tpu_torch.models.weights import load_snapshot
+    from torch_parity import SNAPSHOT
+
+    model, _ = load_snapshot(SNAPSHOT, cuda, torch.bfloat16)
+    images = bench.real_batch_images(9000, 64)
+    bits = torch.from_numpy(pack_images(images, 0.6)).to(cuda)
+    zero = torch.zeros((), dtype=torch.uint8, device=cuda)
+    heads = sparse_heads(model, model.dtype) if sparse else None
+    before = (unpack_bits.launches, nms_topk.launches)
+    got, carry = bench.serve_step(model, heads, bits, zero)
+    torch.cuda.synchronize()
+    assert (unpack_bits.launches - before[0],
+            nms_topk.launches - before[1]) == (1, 1)
+    assert carry.device.type == "cuda" and carry.dtype == torch.uint8
+    want = make_infer_pipeline(model, cuda, sparse=sparse)(images)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        v = v.cpu().numpy()
+        assert v.dtype == want[k].dtype, k
+        assert np.array_equal(v, want[k]), k

@@ -11,8 +11,9 @@
     relative, every term within 1e-4 relative (+1e-6), every metric pair
     equal to 1e-5;
   * every module of the package and chip_smoke.py import with jax, flax,
-    optax, orbax, abcnet_tpu, matplotlib and pandas blocked, and the
-    generator draws a molecule with its shipped fonts there;
+    optax, orbax, abcnet_tpu, matplotlib, pandas and the repo-root
+    bench.py (JAX code) blocked, and the generator draws a molecule with
+    its shipped fonts there;
   * an entry point without device="cpu" raises when there is no GPU.
 """
 
@@ -181,7 +182,7 @@ class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
         if top in ("jax", "jaxlib", "flax", "optax", "orbax", "abcnet_tpu",
-                   "matplotlib", "pandas"):
+                   "matplotlib", "pandas", "bench"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -199,7 +200,7 @@ from abcnet_tpu_torch.data.generate import generate_sample
 assert generate_sample(random.Random(777001), mode="rdkit") is not None
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                              "abcnet_tpu", "matplotlib", "pandas")]
+                              "abcnet_tpu", "matplotlib", "pandas", "bench")]
 assert not bad, bad
 print(len(names))
 """
@@ -220,7 +221,7 @@ def test_port_imports_without_jax_or_abcnet_tpu():
                  "utils.viz", "chem.random_mol", "chem.inchi", "data.layout",
                  "data.raster2", "data.render", "data.render2",
                  "data.generate", "data.degrade", "data.pool",
-                 "eval.class_metrics", "eval.final_eval"):
+                 "eval.class_metrics", "eval.final_eval", "bench"):
         assert os.path.exists(os.path.join(
             REPO, "abcnet_tpu_torch", *name.split(".")) + ".py"), name
 
