@@ -41,6 +41,15 @@ class ScoreReport:
 
 
 @functools.lru_cache(maxsize=8192)
+def _canonical_tautomer(smiles: str) -> Optional[str]:
+    """canonicalize_tautomer_smiles, cached by string: a truth is scored
+    against each wrong prediction of it, up to one per degradation in
+    eval/degraded_bench.py, and its tautomer search costs as much as the
+    prediction's."""
+    return canonicalize_tautomer_smiles(smiles)
+
+
+@functools.lru_cache(maxsize=8192)
 def _score_pair(truth: str, pred: str) -> Tuple[bool, bool, bool, float]:
     """(isomeric equal, non-isomeric equal, tautomer-insensitive equal,
     Dice contribution) of one decoded pair. A pure function of two
@@ -55,8 +64,8 @@ def _score_pair(truth: str, pred: str) -> Tuple[bool, bool, bool, float]:
         return False, False, False, 0.0
     if iso_eq:
         return True, noniso_eq, True, 1.0
-    tt = canonicalize_tautomer_smiles(truth)
-    tp = canonicalize_tautomer_smiles(pred)
+    tt = _canonical_tautomer(truth)
+    tp = _canonical_tautomer(pred)
     if tt is not None and tt == tp:
         return False, noniso_eq, True, 1.0
     try:

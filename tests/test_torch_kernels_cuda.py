@@ -316,3 +316,66 @@ def test_bench_program_is_the_served_program(cuda, sparse):
         v = v.cpu().numpy()
         assert v.dtype == want[k].dtype, k
         assert np.array_equal(v, want[k]), k
+
+
+def test_decode_ceiling_peaks_kernel_equals_plain(cuda, monkeypatch):
+    """The decode ceiling's route: extract_peaks on the perfect (plateau-
+    rich, f32) logits of 4 samples on the card, one NMS launch a sample,
+    every peak field bit-equal to the same decode with the plain NMS on
+    the same device."""
+    import random
+
+    from abcnet_tpu_torch.data.generate import generate_sample
+    from abcnet_tpu_torch.eval.decode_ceiling import perfect_logits
+    from abcnet_tpu_torch.infer import decode
+
+    samples, seed = [], 1000
+    while len(samples) < 4:
+        s = generate_sample(random.Random(seed),
+                            mode=("rdkit", "indigo")[len(samples) % 2])
+        seed += 1
+        if s is not None:
+            samples.append(s)
+    for s in samples:
+        logits = {k: v.to(cuda) for k, v in perfect_logits(s).items()}
+        before = nms_topk.launches
+        got = decode.extract_peaks(logits)
+        torch.cuda.synchronize()
+        assert nms_topk.launches == before + 1
+        with monkeypatch.context() as m:
+            m.setattr(decode, "nms_topk_pair", peaks.nms_topk_pair_plain)
+            want = decode.extract_peaks(logits)
+        assert nms_topk.launches == before + 1
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_degraded_sweep_launches_once_per_batch(cuda):
+    """degraded_bench's route at both thresholds: one unpack and one NMS
+    launch per batch of 16, each variant's first batch bit-equal to
+    make_infer_pipeline at its threshold."""
+    import numpy as np
+
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.eval import degraded_bench
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models.weights import load_snapshot
+
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, cuda, torch.bfloat16)
+    samples = _fixture_samples(32)
+    variants = [v for v in degraded_bench.VARIANTS
+                if v[0] in ("clean", "gray_scan_thr0.2")]
+    before = (unpack_bits.launches, nms_topk.launches)
+    rows = degraded_bench.sweep(model, samples, variants, verbose=False)
+    torch.cuda.synchronize()
+    assert (unpack_bits.launches - before[0],
+            nms_topk.launches - before[1]) == (4, 4)
+    for (name, fn, thr), r in zip(variants, rows):
+        want = make_infer_pipeline(model, cuda, threshold=thr)(
+            np.stack([fn(s.image) for s in samples[:16]]))
+        assert r.name == name and sorted(want) == sorted(r.first_peaks)
+        for k in want:
+            assert np.array_equal(want[k], r.first_peaks[k]), (name, k)
+        assert r.report.decode_rate >= 0.9
