@@ -20,7 +20,9 @@ spatial axes, because Flax's ConvTranspose correlates the dilated input
 with the kernel as stored while torch's ConvTranspose2d uses the flipped
 kernel. `to_flax` is the exact inverse of `from_flax`, and
 `save_snapshot` writes the same .npz key layout (f32 arrays), so
-weights move both ways between the two packages.
+weights move both ways between the two packages; `save_snapshot_f16`
+writes it with the insurance snapshot's storage rule (float16 where
+that is exact for the bf16 compute path, scripts/snapshot_weights.py).
 """
 
 from __future__ import annotations
@@ -171,14 +173,16 @@ def model_for_tree(params: Dict, dtype: torch.dtype = torch.float32
     return UNet(heads, dtype, fused_head_bank="head_bank" in params)
 
 
-def save_snapshot(model: torch.nn.Module, path: str, step: int = 0) -> str:
-    """Write `model`'s weights as a snapshot .npz in the key layout of
-    scripts/snapshot_weights.py:89-107 (`params/...`, `batch_stats/...`,
-    `__step__`), every array f32. `load_snapshot` here and the JAX
-    package's snapshot readers both load it. Written to a temporary name
-    and renamed into place."""
+def _write_snapshot(model: torch.nn.Module, path: str, step: int,
+                    store=lambda key, v: v) -> str:
+    """`model`'s weights as a snapshot .npz: each parameter as
+    `store(key, f32 array)` returns it, batch stats f32, `__step__`;
+    written to a temporary name and renamed into place."""
     params, stats = to_flax(model.state_dict())
-    arrays = {"/".join(("params",) + k): v for k, v in _flatten(params)}
+    arrays = {}
+    for k, v in _flatten(params):
+        key = "/".join(("params",) + k)
+        arrays[key] = store(key, v)
     arrays.update({"/".join(("batch_stats",) + k): v
                    for k, v in _flatten(stats)})
     arrays["__step__"] = np.int64(step)
@@ -186,6 +190,48 @@ def save_snapshot(model: torch.nn.Module, path: str, step: int = 0) -> str:
     np.savez_compressed(tmp, **arrays)
     os.replace(tmp, path)
     return path
+
+
+def save_snapshot(model: torch.nn.Module, path: str, step: int = 0) -> str:
+    """Write `model`'s weights as a snapshot .npz in the key layout of
+    scripts/snapshot_weights.py:89-107 (`params/...`, `batch_stats/...`,
+    `__step__`), every array f32. `load_snapshot` here and the JAX
+    package's snapshot readers both load it. Written to a temporary name
+    and renamed into place."""
+    return _write_snapshot(model, path, step)
+
+
+def f16_is_exact(v: np.ndarray) -> bool:
+    """Whether float16 storage of the f32 array `v` loses nothing the bf16
+    compute path sees: every value finite in f16, and f16 -> f32 -> bf16
+    equal bit for bit to f32 -> bf16 (an overflow past 65504 or a
+    subnormal with fewer f16 than bf16 mantissa bits fails). Rounded to
+    bf16 by torch's cast, round to nearest even. BatchNorm's scale and
+    bias are consumed in f32 (models/unet.py), so for them f16 storage
+    still moves the outputs; the rule is the JAX package's all the same."""
+    f16 = v.astype(np.float16)
+    if not np.isfinite(f16).all():
+        return False
+
+    def bf16_bits(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            torch.bfloat16).view(torch.int16)
+    return torch.equal(bf16_bits(f16.astype(np.float32)), bf16_bits(v))
+
+
+def save_snapshot_f16(model: torch.nn.Module, path: str, step: int = 0,
+                      log=print) -> str:
+    """Write `model`'s weights as the compact insurance snapshot of
+    scripts/snapshot_weights.py:save: each parameter float16 where
+    `f16_is_exact` holds and f32 otherwise (`log` names it), batch stats
+    f32, `__step__`; written to a temporary name and renamed into place.
+    `load_snapshot` and the JAX package's readers load it."""
+    def store(key, v):
+        if f16_is_exact(v):
+            return v.astype(np.float16)
+        log(f"  [f16-unsafe] {key}: stored float32")
+        return v
+    return _write_snapshot(model, path, step, store)
 
 
 def load_snapshot(path: str, device="cuda",

@@ -145,6 +145,11 @@ def set_atom_type_weights(weights) -> None:
     _ATOM_W = w
 
 
+def get_atom_type_weights() -> np.ndarray:
+    """The atom-type focal weights compute_losses uses now (a copy)."""
+    return _ATOM_W.copy()
+
+
 def _to_nhwc_targets(targets: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """Scatter targets are channel-first (reference layout); heads are

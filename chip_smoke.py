@@ -126,15 +126,35 @@ per phase:
      eval.e2e_overfit 64 75 (300 steps at batch 16: loss finite and
      falling, exit code 0 iff the printed exact > 0, one noise launch a
      step);
- 17. the card line of nvidia-smi, then the kernels line, then the result.
+ 17. recipe, the production training recipe's four entry points through
+     their main(argv) in a temporary directory, each path's launches read
+     from its own run (`pool_r5`, `train_r5`, `finetune_robust`,
+     `finetune_hard_mine`, `finetune_hard`): train.build_pool_r5 with 512
+     train rows (the 256 eval rows and the first 256 train rows against
+     assets/pool_r5_digests.npz: labels, SMILES, lineage, engine, engine B
+     images bit-equal, engine A ink masks of 16 rows within 1% of pixels;
+     samples/s); train.train_r5 for 75 s with a 75-s budget from a seeded
+     init (the three learning rates in order, loss finite, EVAL keys, the
+     checkpoint, the float16 snapshot stored by its rule, its fixture
+     SMILES reported beside the run's weights', the commit logged, one
+     noise launch a train and a metrics step); the committed snapshot's
+     own EVAL and FINAL numbers on the eval split; train.finetune_robust
+     (64-row engine B pool; the float16 snapshot of the weights it trained
+     serves their SMILES) and train.finetune_hard (mined set against the
+     phase's own count of misses, the cache read again) at batch 128 with
+     the remat set for about 40 s each, peak memory and step ms, gated
+     against the snapshot's numbers less 0.05;
+ 18. the card line of nvidia-smi, then the kernels line, then the result.
 
 Every new path is driven with the kernels' launch counts set to 0 just
 before it and read just after (`launches_by_path` of the kernels line).
 `--phases a,b` runs the environment phase and the named phases only (for
 iterating on the card); with no arguments every phase runs but
-`bench_probe`, which runs only when named: the JAX bench's train batch
-128 in a process of its own, the reading that chose bench's
---train-batch default.
+`bench_probe` and `remat_probe`, which run only when named: the JAX
+bench's train batch 128 in a process of its own, the reading that chose
+bench's --train-batch default; and the fine-tunes' batch 128 under each
+candidate remat set in a process of its own, the reading that chose
+train/recipe.py:FT_REMAT_BLOCKS.
 
 Exits non-zero on any failed phase, and without a result when there is
 no CUDA device or no abcnet_tpu_torch package beside the script.
@@ -251,6 +271,26 @@ EVAL_NEAR_TIE = 8 / 128
 # it scoring them (a tautomer search each), took 63 s; after 300 it
 # decodes 3.
 E2E_ARGS = ("64", "75")
+# recipe: the fine-tunes' batch (scripts/finetune_hard.py:43,
+# finetune_robust.py:40), which the plain step does not fit, and the remat
+# sets `--phases remat_probe` tries there: the JAX module's candidates, the
+# 512² and 256² low-channel levels (abcnet_tpu/models/unet.py:144-151),
+# then the heads, then every block and the heads.
+FT_BATCH = 128
+REMAT_CANDIDATES = (("inc1", "inc2"), ("inc1", "inc2", "down1"),
+                    ("inc1", "inc2", "down1", "down2"), ("heads",),
+                    ("inc1", "inc2", "heads"), "all")
+REMAT_PROBE_STEPS = 5
+# recipe: the production recipe's four entry points on a pool of
+# RECIPE_TRAIN_N train rows (cut from 90000) after the 256-row eval split;
+# train_r5 for 75 s with a 75-s budget (all three learning rates), each
+# fine-tune for about 40 s (setup included in the deadline). The gates
+# hold the fine-tuned weights to the snapshot's own numbers on the same
+# split less 0.05.
+RECIPE_TRAIN_N = 512
+RECIPE_TRAIN_S = 75.0
+RECIPE_FT_S = 40.0
+RECIPE_SLACK = 0.05
 
 
 def emit(phase, **kw):
@@ -2530,6 +2570,88 @@ def phase_bench_probe(torch):
          parent_reserved_gib=parent_reserved_gib)
 
 
+def remat_probe_worker(out_path, batch, blocks):
+    """REMAT_PROBE_STEPS train steps at `batch` of the production UNet
+    (bf16, seeded init) with `blocks` (comma-separated; "all" for every
+    block and the heads) rematerialized, in a process of its own, on two
+    staged synthetic batches, then one train_metrics_step: the median
+    step ms of the steps after the first two (CUDA events), the peak
+    memory, or the out-of-memory and the peak before it."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from abcnet_tpu_torch.data import pipeline
+    from abcnet_tpu_torch.models.unet import UNet
+    from abcnet_tpu_torch.train import trainer
+
+    names = (UNet.BLOCKS + ("heads",) if blocks == "all"
+             else tuple(b for b in blocks.split(",") if b))
+    batch = int(batch)
+    res = {"batch": batch, "remat_blocks": list(names)}
+    try:
+        torch.manual_seed(0)
+        model = UNet(dtype=torch.bfloat16, remat_blocks=names)
+        state = trainer.create_state(
+            trainer.TrainConfig(batch_size=batch), model=model)
+        staged = [trainer.to_device(pipeline.synthetic_batch(batch, 100 + s),
+                                    "cuda") for s in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(REMAT_PROBE_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, total, _, _ = trainer.train_step(state, staged[i % 2], i,
+                                                with_metrics=False)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        trainer.train_metrics_step(state, staged[0], 0)
+        torch.cuda.synchronize()
+        res.update(fits=True, step_ms=times,
+                   step_ms_median=sorted(times[2:])[len(times[2:]) // 2],
+                   loss_finite=bool(torch.isfinite(total)),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    except torch.cuda.OutOfMemoryError as e:
+        res.update(fits=False,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   error=str(e).splitlines()[0][:400])
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def phase_remat_probe(torch):
+    """The batch-128 fine-tunes' remat set, chosen on the card: each
+    candidate of REMAT_CANDIDATES (and the plain step at BATCH for
+    reference) in a process of its own, so that an out-of-memory spoils
+    nothing after it. Runs only when named (`--phases remat_probe`); its
+    one reading chose train/recipe.py:FT_REMAT_BLOCKS."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    rows = []
+    runs = [(BATCH, "")] + [(FT_BATCH, ",".join(c) if isinstance(c, tuple)
+                             else c) for c in REMAT_CANDIDATES]
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (batch, blocks) in enumerate(runs):
+            out = os.path.join(tmp, f"probe{i}.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--remat-probe",
+                 out, str(batch), blocks], capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != 0 or not os.path.exists(out):
+                raise RuntimeError(f"the remat probe {batch} {blocks!r} "
+                                   f"failed: {proc.stderr[-3000:]}")
+            with open(out) as f:
+                row = json.load(f)
+            row["seconds"] = time.perf_counter() - t0
+            rows.append(row)
+            emit("remat_probe_row", **row)
+    emit("remat_probe", rows=rows,
+         card_gib=torch.cuda.get_device_properties(0).total_memory / 2 ** 30)
+
+
 def phase_bench(torch):
     """The `bench` sub-command: `bench` (sparse, then its train steps at
     the default --train-batch) and `bench --dense --skip-train` through
@@ -2870,6 +2992,420 @@ def phase_eval_suite(torch):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the production training recipe
+# ---------------------------------------------------------------------------
+
+def _counted(torch, by_path, path, main_fn, argv):
+    """main_fn(argv) through _entry with the launch counts set to 0 just
+    before and read just after (under `path`), and the peak memory of the
+    run: (returned, output, seconds, launches, peak GiB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, text, secs = _entry(main_fn, argv)
+    torch.cuda.synchronize()
+    by_path[path] = read_launches()
+    return (out, text, secs, by_path[path],
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _recipe_pool(torch, tmp, by_path):
+    """build_pool_r5 at RECIPE_TRAIN_N against assets/pool_r5_digests.npz
+    (the JAX script's 256 eval rows and first 256 train rows)."""
+    import numpy as np
+    import PIL
+    from PIL import features
+
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.train import build_pool_r5 as bp
+
+    path = os.path.join(tmp, "pool_r5.npz")
+    res, text, secs, n, _ = _counted(torch, by_path, "pool_r5", bp.main,
+                                     [path, str(RECIPE_TRAIN_N)])
+    z = np.load(os.path.join(HERE, "abcnet_tpu_torch", "assets",
+                             "pool_r5_digests.npz"))
+    m = len(z["smiles"])
+    rows = res.samples[:m]
+    equal = {
+        "smiles": sum(s.smiles == t for s, t in zip(rows,
+                                                    z["smiles"].tolist())),
+        "atoms": sum(np.array_equal(_sha(s.atoms_string.encode()), d)
+                     for s, d in zip(rows, z["atoms"])),
+        "bonds": sum(np.array_equal(_sha(s.bonds_string.encode()), d)
+                     for s, d in zip(rows, z["bonds"])),
+        "lineage": sum(a == b for a, b in zip(res.modes, z["modes"].tolist())),
+        "engine": sum(a == b for a, b in zip(res.engines,
+                                             z["engines"].tolist())),
+    }
+    same = [np.array_equal(_sha(np.ascontiguousarray(s.image).tobytes()), d)
+            for s, d in zip(rows, z["image"])]
+    engines = z["engines"].tolist()
+    images = {e: {"rows": engines.count(e),
+                  "bit_equal": sum(ok for ok, x in zip(same, engines)
+                                   if x == e)} for e in ("a", "b")}
+    masks = pack_images(np.stack([s.image for s in rows[:len(z["masks"])]]))
+    share = np.unpackbits(masks ^ z["masks"][:len(masks)], axis=-1).reshape(
+        len(masks), -1).mean(axis=1)
+    gates = {
+        "rows": len(res.samples) == bp.EVAL_N + RECIPE_TRAIN_N,
+        "labels_smiles_lineage_engine": all(v == m for v in equal.values()),
+        "engine_b_images_bit_equal":
+            images["b"]["bit_equal"] == images["b"]["rows"] > 0,
+        "engine_a_mask_pixels": float(share.max()) <= PIXEL_SHARE_MAX,
+        "no_launches": not any(n.values()),
+    }
+    emit("recipe_pool_r5", argv=[path, str(RECIPE_TRAIN_N)],
+         rows=len(res.samples), fixture_rows=m, equal=equal, images=images,
+         mask_rows=len(masks), mask_pixel_share=share.tolist(),
+         samples_per_s=res.samples_per_s, generate_s=res.seconds,
+         pillow=PIL.__version__, freetype=features.version("freetype2"),
+         output=text, launches=n, seconds=secs, gates=gates)
+    return path, gates, secs
+
+
+def _recipe_reference(torch, pool):
+    """The committed snapshot's own numbers on the pool's eval split:
+    recipe.run_eval (EVAL's metrics) and the split served at batch 16 and
+    scored (FINAL's report)."""
+    import numpy as np
+
+    from abcnet_tpu_torch.data.pool import load_pool
+    from abcnet_tpu_torch.eval.scoring import score_pairs
+    from abcnet_tpu_torch.infer.assemble import assemble_batch
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models.weights import load_weights
+    from abcnet_tpu_torch.train import build_pool_r5 as bp
+    from abcnet_tpu_torch.train import recipe, trainer
+
+    t0 = time.perf_counter()
+    model, step = load_weights(recipe.DEFAULT_SNAPSHOT, "cuda",
+                               torch.bfloat16)
+    eval_samples, train_samples, eval_examples, _ = recipe.split_pool(
+        load_pool(pool), bp.EVAL_N)
+    state = trainer.create_state(trainer.TrainConfig(), model=model)
+    metrics = recipe.run_eval(state, eval_examples, log=lambda line: None)
+    run = make_infer_pipeline(model, "cuda")
+    preds = []
+    for i in range(0, len(eval_samples), recipe.EVAL_BATCH):
+        preds.extend(assemble_batch(run(np.stack(
+            [s.image for s in eval_samples[i:i + recipe.EVAL_BATCH]]))))
+    report = score_pairs([s.smiles for s in eval_samples], preds)
+    ref = {"step": step, "eval": metrics, "final": report,
+           "seconds": time.perf_counter() - t0}
+    del state
+    return model, train_samples, ref
+
+
+def _recipe_train_r5(torch, tmp, pool, fixture, by_path):
+    """train_r5 for RECIPE_TRAIN_S from a seeded init: the schedule, the
+    loss, EVAL, the checkpoint, the float16 snapshot against the rule and
+    served beside the weights the run ended with, the commit."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from abcnet_tpu_torch.infer.assemble import assemble_batch
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models.weights import (f16_is_exact, load_snapshot,
+                                                 load_weights, to_flax)
+    from abcnet_tpu_torch.train import build_pool_r5 as bp
+    from abcnet_tpu_torch.train import recipe
+    from abcnet_tpu_torch.train import train_r5 as tr
+
+    ck = os.path.join(tmp, "weights_torch")
+    snap_dir = os.path.join(tmp, "snapshots")
+    os.makedirs(snap_dir)
+    git = shutil.which("git")
+    if git:      # a repository of its own, so that the commit can land
+        for args in (["init", "-q"], ["config", "user.name", "chip smoke"],
+                     ["config", "user.email", "smoke@localhost"],
+                     ["config", "commit.gpgsign", "false"]):
+            subprocess.run([git, "-C", snap_dir, *args], check=True,
+                           capture_output=True, timeout=60)
+    snap = os.path.join(snap_dir, "r5_torch_latest.npz")
+    argv = [repr(time.time() + RECIPE_TRAIN_S), repr(RECIPE_TRAIN_S / 3600),
+            pool, "--ckpt-dir", ck, "--snapshot", snap]
+    res, text, secs, n, peak = _counted(torch, by_path, "train_r5", tr.main,
+                                        argv)
+    lines = text.splitlines()
+    evals = [x for x in lines if x.startswith("EVAL ")]
+    eval_keys = [t.split("=")[0] for t in evals[-1].split()[1:]] \
+        if evals else []
+
+    # The weights the run ended with are its checkpoint's (written at the
+    # snapshot's step); the snapshot against the storage rule on them, and
+    # the fixture served by both.
+    t0 = time.perf_counter()
+    mem, mem_step = load_weights(ck, "cuda", torch.bfloat16)
+    snap_model, snap_step = load_snapshot(snap, "cuda", torch.bfloat16)
+    params, stats = to_flax(mem.state_dict())
+    flat = _flat_tree({"params": params, "batch_stats": stats})
+    rule = {k: np.float16 if k.startswith("params/") and f16_is_exact(v)
+            else np.float32 for k, v in flat.items()}
+    z = np.load(snap)
+    stored_as_rule = sorted(rule) == sorted(
+        f for f in z.files if f != "__step__") and all(
+        z[k].dtype == rule[k] and np.array_equal(z[k], v.astype(rule[k]))
+        for k, v in flat.items())
+    images = np.stack(list(fixture["images"]))
+    peaks_mem = make_infer_pipeline(mem, "cuda")(images)
+    peaks_snap = make_infer_pipeline(snap_model, "cuda")(images)
+    smi_mem = assemble_batch(peaks_mem)
+    smi_snap = assemble_batch(peaks_snap)
+    smiles_equal = sum(a == b for a, b in zip(smi_mem, smi_snap))
+    check_s = time.perf_counter() - t0
+    del mem, snap_model
+
+    last_loss = float(res.last_loss)
+    eval_batches = bp.EVAL_N // recipe.EVAL_BATCH
+    gates = {
+        "lr_order": [x.split()[2] for x in lines if x.startswith("lr -> ")]
+        == ["0.00025", "2.5e-05", "1e-05"],
+        "loss_finite": math.isfinite(last_loss) and all(
+            math.isfinite(v) for _, v in res.logged),
+        "eval_line_keys": bool(evals) and eval_keys == sorted(
+            res.evals[-1][1]) and {"atom_target_precision",
+                                   "bond_target_precision",
+                                   "bond_omega_precision",
+                                   "bond_rhos_mae"} <= set(eval_keys),
+        "run_complete": lines[-1] == "RUN COMPLETE",
+        "checkpoint": os.listdir(ck) == [f"step_{res.step:08d}.pt"]
+        and mem_step == res.step,
+        "snapshot_follows_the_rule": stored_as_rule
+        and snap_step == res.step and int(z["__step__"]) == res.step,
+        "commit_attempt_logged": any(x.startswith(
+            ("[snapshot] commit step", "[snapshot] git attempt"))
+            for x in lines),
+        "launches": n["unpack_noise"] == res.steps + res.metrics_steps
+        and n["unpack_bits"] == eval_batches * len(res.evals)
+        and n["nms_topk"] == 0,
+    }
+    dtypes = [str(z[k].dtype) for k in z.files if k.startswith("params/")]
+    emit("recipe_train_r5", argv=argv, steps=res.steps,
+         metrics_steps=res.metrics_steps, lr_changes=res.lr_changes,
+         logged_losses=res.logged, last_loss=last_loss,
+         eval=res.evals[-1][1] if res.evals else None,
+         snapshot={"bytes": os.path.getsize(snap),
+                   "params_f16": dtypes.count("float16"),
+                   "params_f32": dtypes.count("float32"),
+                   "f16": [k for k in z.files if z[k].dtype == np.float16],
+                   "smiles_equal": smiles_equal, "of": len(images),
+                   "peaks_bit_equal": _peaks_equal(peaks_mem, peaks_snap),
+                   "note": "not gated: BatchNorm consumes its scale and "
+                           "bias in f32 in both packages, so an f16-stored "
+                           "BatchNorm array moves the logits, and this "
+                           "run's 75-s model puts its peaks near the "
+                           "threshold; recipe_finetune_robust holds the "
+                           "served SMILES on trained weights"},
+         git=git, commit_lines=[x for x in lines if x.startswith(
+             "[snapshot] ")], step_wall_ms_median=float(np.median(
+                 res.step_wall_s)) * 1e3 if res.step_wall_s else None,
+         peak_gib=peak, check_s=check_s, output=text, launches=n,
+         seconds=secs, gates=gates)
+    return gates, secs + check_s
+
+
+def _recipe_finetune_common(torch, res, text, n, peak, out_dir, extra_unpack,
+                            extra_nms):
+    """The gates both fine-tunes share."""
+    import math
+
+    from abcnet_tpu_torch.train import build_pool_r5 as bp
+    from abcnet_tpu_torch.train import recipe
+
+    lines = text.splitlines()
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    return {
+        "batch": res.batch == FT_BATCH,
+        "lr_drop": any(x == "lr -> 1e-05" for x in lines)
+        and res.lr_changes[-1][1] == 1e-5,
+        "loss_finite": math.isfinite(float(res.last_loss)),
+        "checkpoint": os.listdir(out_dir) == [f"step_{res.step:08d}.pt"],
+        "peak_under_the_card": peak < card,
+        "launches": n["unpack_noise"] == res.steps + res.metrics_steps
+        and n["unpack_bits"] == bp.EVAL_N // recipe.EVAL_BATCH
+        * len(res.evals) + extra_unpack and n["nms_topk"] == extra_nms,
+    }
+
+
+def _recipe_robust(torch, tmp, pool, fixture, ref, by_path):
+    """finetune_robust for about RECIPE_FT_S from the committed snapshot,
+    with a 64-row engine-B pool, at batch 128 with the remat set; then the
+    float16 snapshot of the weights it trained, serving the fixture."""
+    import numpy as np
+
+    from abcnet_tpu_torch.train import finetune_robust as fr
+    from abcnet_tpu_torch.train import recipe
+
+    out = os.path.join(tmp, "weights_torch_robust")
+    argv = [repr(time.time() + RECIPE_FT_S), pool,
+            os.path.join(tmp, "pool_b.npz"), out]
+    res, text, secs, n, peak = _counted(torch, by_path, "finetune_robust",
+                                        fr.main, argv)
+    gates = _recipe_finetune_common(torch, res, text, n, peak, out, 0, 0)
+    ap = res.evals[-1][1]["atom_target_precision"]
+    ref_ap = ref["eval"]["atom_target_precision"]
+    gates["eval_atom_precision"] = ap >= ref_ap - RECIPE_SLACK
+    gates["b_pool_64"] = "pool cached: 64 samples" in text
+    snapshot = _f16_snapshot_serves(torch, out, fixture, tmp)
+    gates["f16_snapshot_serves_the_smiles"] = \
+        snapshot["smiles_equal"] >= snapshot["of"] - MESH_SMILES_SLACK
+    emit("recipe_finetune_robust", argv=argv, start_step=res.start_step,
+         steps=res.steps, metrics_steps=res.metrics_steps,
+         remat_blocks=list(recipe.FT_REMAT_BLOCKS), batch=res.batch,
+         lr_changes=res.lr_changes, last_loss=float(res.last_loss),
+         eval_atom_target_precision=ap, snapshot_atom_target_precision=ref_ap,
+         eval=res.evals[-1][1], peak_gib=peak, f16_snapshot=snapshot,
+         step_wall_ms_median=float(np.median(res.step_wall_s)) * 1e3
+         if res.step_wall_s else None, output=text, launches=n,
+         seconds=secs, gates=gates)
+    return gates, secs + snapshot["seconds"]
+
+
+def _f16_snapshot_serves(torch, ckpt_dir, fixture, tmp):
+    """save_snapshot_f16 of the trained weights in `ckpt_dir`, the fixture
+    served by both: SMILES equal, peak dicts bit-equal or not."""
+    import numpy as np
+
+    from abcnet_tpu_torch.infer.assemble import assemble_batch
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models.weights import (load_snapshot, load_weights,
+                                                 save_snapshot_f16)
+
+    t0 = time.perf_counter()
+    mem, step = load_weights(ckpt_dir, "cuda", torch.bfloat16)
+    path = os.path.join(tmp, "trained_f16.npz")
+    save_snapshot_f16(mem, path, step, log=lambda line: None)
+    snap, _ = load_snapshot(path, "cuda", torch.bfloat16)
+    z = np.load(path)
+    images = np.stack(list(fixture["images"]))
+    want = make_infer_pipeline(mem, "cuda")(images)
+    got = make_infer_pipeline(snap, "cuda")(images)
+    equal = sum(a == b for a, b in zip(assemble_batch(want),
+                                       assemble_batch(got)))
+    return {"step": step, "bytes": os.path.getsize(path),
+            "f16": [k for k in z.files if z[k].dtype == np.float16],
+            "smiles_equal": equal, "of": len(images),
+            "peaks_bit_equal": _peaks_equal(want, got),
+            "seconds": time.perf_counter() - t0}
+
+
+def _recipe_hard(torch, tmp, pool, model, train_samples, ref, by_path):
+    """mine_hard over the train split, held to the phase's own count of
+    misses, then finetune_hard reading its cache for about RECIPE_FT_S at
+    batch 128, FINAL against the snapshot's own report."""
+    import numpy as np
+
+    from abcnet_tpu_torch.infer.assemble import assemble_batch
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.train import finetune_hard as fh
+    from abcnet_tpu_torch.train import recipe
+
+    cache_dir = os.path.join(tmp, "cache")
+    cache = fh.cache_path(cache_dir, ref["step"])
+    mined_lines = []
+    idx, _, mine_s, n_mine, _ = _counted(
+        torch, by_path, "finetune_hard_mine",
+        lambda argv: fh.mine_hard(model, train_samples, cache, "cuda",
+                                  mined_lines.append), None)
+    t0 = time.perf_counter()
+    run = make_infer_pipeline(model, "cuda")
+    misses = []
+    for i in range(0, len(train_samples) - fh.MINE_BATCH + 1, fh.MINE_BATCH):
+        chunk = train_samples[i:i + fh.MINE_BATCH]
+        preds = assemble_batch(run(np.stack([s.image for s in chunk])))
+        misses.extend(i + j for j, (s, p) in enumerate(zip(chunk, preds))
+                      if not fh._same_mol(p, s.smiles))
+    own_s = time.perf_counter() - t0
+    mine_batches = len(train_samples) // fh.MINE_BATCH
+
+    out = os.path.join(tmp, "weights_torch_hard")   # not train_r5's
+    argv = [repr(time.time() + RECIPE_FT_S), pool, "--out", out,
+            "--cache-dir", cache_dir]
+    res, text, secs, n, peak = _counted(torch, by_path, "finetune_hard",
+                                        fh.main, argv)
+    final_batches = -(-fh.EVAL_N // recipe.EVAL_BATCH)
+    gates = _recipe_finetune_common(torch, res, text, n, peak, out,
+                                    final_batches, final_batches)
+    gates.update({
+        "mined_equals_own_count": idx.tolist() == misses,
+        "mine_launches": n_mine["unpack_bits"] == n_mine["nms_topk"]
+        == mine_batches and n_mine["unpack_noise"] == 0,
+        "cache_read_again": f"mined cache: {len(idx)} hard examples"
+        in text.splitlines() and np.array_equal(res.hard_idx, idx),
+        "final_decode": res.final.decode_rate >= FINAL_EVAL_DECODE_MIN,
+        "final_exact": res.final.exact_match
+        >= ref["final"].exact_match - RECIPE_SLACK,
+    })
+    emit("recipe_finetune_hard", argv=argv, start_step=res.start_step,
+         mined=len(idx), of=len(train_samples), mine_lines=mined_lines,
+         mine_s=mine_s, own_count_s=own_s, launches_mine=n_mine,
+         hard_rows_a_batch=max(1, int(FT_BATCH * fh.HARD_FRAC)),
+         steps=res.steps, metrics_steps=res.metrics_steps,
+         lr_changes=res.lr_changes, last_loss=float(res.last_loss),
+         final=str(res.final), snapshot_final=str(ref["final"]),
+         eval=res.evals[-1][1], peak_gib=peak,
+         step_wall_ms_median=float(np.median(res.step_wall_s)) * 1e3
+         if res.step_wall_s else None, output=text, launches=n,
+         seconds=secs, gates=gates)
+    return gates, mine_s + own_s + secs
+
+
+def phase_recipe(torch, fixture):
+    """The production training recipe through its four entry points, in a
+    temporary directory, each path's launches read from its own run
+    (`pool_r5`, `train_r5`, `finetune_robust`, `finetune_hard_mine`,
+    `finetune_hard`): build_pool_r5 against the digest fixture, train_r5
+    from a seeded init, then the committed snapshot's own EVAL and FINAL
+    numbers on the eval split, finetune_robust and finetune_hard from it
+    at batch 128 with the remat set."""
+    import tempfile
+
+    from abcnet_tpu_torch.train import recipe
+
+    by_path, gates, times = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pool, gates["pool_r5"], times["pool_r5"] = _recipe_pool(
+            torch, tmp, by_path)
+        gates["train_r5"], times["train_r5"] = _recipe_train_r5(
+            torch, tmp, pool, fixture, by_path)
+        model, train_samples, ref = _recipe_reference(torch, pool)
+        times["snapshot_reference"] = ref["seconds"]
+        gates["finetune_robust"], times["finetune_robust"] = _recipe_robust(
+            torch, tmp, pool, fixture, ref, by_path)
+        gates["finetune_hard"], times["finetune_hard"] = _recipe_hard(
+            torch, tmp, pool, model, train_samples, ref, by_path)
+        del model
+    torch.cuda.empty_cache()
+    ok = all(all(g.values()) for g in gates.values())
+    emit("recipe", ok=ok, gates=gates, launches_by_path=by_path,
+         seconds=times, snapshot_reference={
+             "step": ref["step"], "eval": ref["eval"],
+             "final": str(ref["final"])},
+         remat_blocks=list(recipe.FT_REMAT_BLOCKS),
+         gate=f"pool rows, labels, SMILES, lineage and engine equal to the "
+              f"digest fixture, engine B images bit-equal, engine A masks "
+              f"within {PIXEL_SHARE_MAX} of pixels, no launch; train_r5: "
+              f"the three LRs in order, loss finite, EVAL keys, checkpoint, "
+              f"snapshot stored by the f16 rule, commit logged, one noise "
+              f"launch a train and a metrics step, one unpack an EVAL batch; "
+              f"fine-tunes at batch {FT_BATCH} under the card's memory, LR "
+              f"to 1e-5, checkpoint; robust EVAL atom precision >= the "
+              f"snapshot's - {RECIPE_SLACK}, its weights' f16 snapshot "
+              f"serving their SMILES (>= 64 - {MESH_SMILES_SLACK}); hard: "
+              f"mined set = the phase's "
+              f"own misses, one unpack and one NMS launch a mining batch, "
+              f"the cache read again, FINAL decode >= "
+              f"{FINAL_EVAL_DECODE_MIN} and exact >= the snapshot's - "
+              f"{RECIPE_SLACK}")
+    if not ok:
+        raise AssertionError("the training recipe failed its gates")
+    return by_path
+
+
 def main(argv):
     if argv[:1] == ["--ddp-worker"]:
         ddp_worker(*argv[1:3])
@@ -2879,6 +3415,9 @@ def main(argv):
         return 0
     if argv[:1] == ["--bench-probe"]:
         bench_probe_worker(*argv[1:3])
+        return 0
+    if argv[:1] == ["--remat-probe"]:
+        remat_probe_worker(*argv[1:4])
         return 0
     only = None
     if argv[:1] == ["--phases"]:
@@ -2979,9 +3518,16 @@ def main(argv):
             phase = "eval_suite"
             torch.cuda.empty_cache()
             by_path.update(phase_eval_suite(torch))
+        if want("recipe"):
+            phase = "recipe"
+            torch.cuda.empty_cache()
+            by_path.update(phase_recipe(torch, fixture))
         if only is not None and "bench_probe" in only:
             phase = "bench_probe"
             phase_bench_probe(torch)
+        if only is not None and "remat_probe" in only:
+            phase = "remat_probe"
+            phase_remat_probe(torch)
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         import traceback
         traceback.print_exc()

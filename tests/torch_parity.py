@@ -206,3 +206,147 @@ def assert_peaks_equal(want, got, atol=1e-5):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+class RecipeStubs:
+    """Recording stand-ins for what a training-recipe trainer calls on its
+    trainer (scripts/train_r5.py, finetune_*.py on the JAX side;
+    abcnet_tpu_torch/train/{train_r5,finetune_*}.py on the port's), with a
+    clock that moves `dt` seconds inside each train step and nowhere else,
+    so that both sides read the same time at the same step. `events` gets
+    one tuple a call, stamped with the state's step; `batches` every host
+    batch a train step was handed. `atom_w` reads the loss weights in
+    force at each step (None: not read)."""
+
+    METRICS = {"atom_target_precision": (3.0, 4.0),
+               "bond_target_precision": (1.0, 2.0)}
+
+    def __init__(self, side, resume_step=0, t0=1_000_000.0, dt=1.0,
+                 atom_w=None):
+        self.side, self.resume_step = side, resume_step
+        self.now, self.dt, self.atom_w = t0, dt, atom_w
+        self.events, self.batches, self.atom_ws = [], [], []
+
+    def time(self):
+        return self.now
+
+    def sleep(self, seconds):
+        pass
+
+    def _metrics(self):
+        if self.side == "jax":
+            import jax.numpy as jnp
+            return {k: (jnp.float32(n), jnp.float32(d))
+                    for k, (n, d) in self.METRICS.items()}
+        return {k: (torch.tensor(n), torch.tensor(d))
+                for k, (n, d) in self.METRICS.items()}
+
+    def create_state(self, cfg, model=None, mesh=None):
+        return types.SimpleNamespace(step=0, model=model,
+                                     device=torch.device("cpu"),
+                                     generator=torch.Generator())
+
+    def restore_checkpoint(self, state, ckpt_dir, step=None):
+        self.events.append(("restore",))
+        state.step = self.resume_step
+        return state
+
+    def set_learning_rate(self, state, lr):
+        self.events.append(("lr", int(state.step), lr))
+        return state
+
+    def train_step(self, state, batch, rng, amount=0.2, with_metrics=True):
+        self.batches.append({k: np.array(v) for k, v in batch.items()})
+        self.events.append(("train", int(state.step), amount, with_metrics))
+        if self.atom_w is not None:
+            self.atom_ws.append(tuple(self.atom_w()))
+        state.step += 1
+        self.now += self.dt
+        return state, np.float32(1.5), {}, None
+
+    def train_metrics_step(self, state, batch, rng, amount=0.2):
+        self.events.append(("metrics", int(state.step), amount))
+        return self._metrics()
+
+    def eval_step(self, state, batch, rng=None):
+        self.events.append(("eval_batch", int(state.step),
+                            len(batch["n_atoms"])))
+        return None, None, self._metrics()
+
+    def save_checkpoint(self, state, ckpt_dir, step=None):
+        self.events.append(("ckpt", int(step)))
+
+    def snapshot(self, step, commit):
+        self.events.append(("snapshot", int(step), bool(commit)))
+
+    def jax_trainer(self):
+        import jax
+
+        from abcnet_tpu.train.trainer import TrainConfig
+        return types.SimpleNamespace(
+            TrainConfig=TrainConfig, create_state=self.create_state,
+            restore_checkpoint=self.restore_checkpoint,
+            set_learning_rate=self.set_learning_rate,
+            rng_key=jax.random.PRNGKey, train_step=self.train_step,
+            train_metrics_step=self.train_metrics_step,
+            eval_step=self.eval_step, save_checkpoint=self.save_checkpoint)
+
+    def torch_trainer(self):
+        from abcnet_tpu_torch.train.trainer import TrainConfig
+        return types.SimpleNamespace(
+            TrainConfig=TrainConfig, create_state=self.create_state,
+            restore_checkpoint=self.restore_checkpoint,
+            set_learning_rate=self.set_learning_rate,
+            to_device=lambda hb, device: hb, next_rng=lambda state: 0,
+            train_step=self.train_step,
+            train_metrics_step=self.train_metrics_step,
+            eval_step=self.eval_step, save_checkpoint=self.save_checkpoint)
+
+
+def load_script(name):
+    """The JAX package's scripts/<name>.py as a fresh module (loaded by
+    path; nothing in scripts/ changes)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stub_jax_script(mod, stubs, repo):
+    """Point a loaded recipe script at `stubs` and at `repo` for every
+    path it derives from its own location: trainer, mesh, clock."""
+    mod.trainer = stubs.jax_trainer()
+    mod.make_mesh = lambda n: None
+    mod.replicate_tree = lambda tree, mesh: tree
+    mod.shard_batch = lambda hb, mesh: hb
+    mod.time = stubs
+    mod.__file__ = os.path.join(repo, "scripts", os.path.basename(
+        mod.__file__))
+    if hasattr(mod, "REPO"):
+        mod.REPO = repo
+
+
+def run_script_main(mod, argv, capsys):
+    """mod.main() with sys.argv set; its printed lines."""
+    import sys
+    old = sys.argv
+    sys.argv = [mod.__file__] + [str(a) for a in argv]
+    capsys.readouterr()
+    try:
+        mod.main()
+    finally:
+        sys.argv = old
+    return capsys.readouterr().out.splitlines()
+
+
+def small_pool(path, eval_n, train_n):
+    """A pool file of the recipe's layout, made by the port's
+    train/build_pool_r5.py."""
+    from abcnet_tpu_torch.train import build_pool_r5 as bp
+    old, bp.EVAL_N = bp.EVAL_N, eval_n
+    try:
+        return bp.build_pool_r5(path, train_n, log=lambda line: None)
+    finally:
+        bp.EVAL_N = old
