@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import csv
 import functools
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -126,22 +127,47 @@ def write_results_csv(path: str, truths: Sequence[str],
             w.writerow([i, t, "" if p is None else p])
 
 
+# The cells pandas.read_csv reads as NaN by default (its `na_values`);
+# the JAX package reads every results CSV through it.
+PANDAS_NA = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+
+
+def read_csv_rows(path: str):
+    """(rows as dicts, column names) of a CSV file, each cell as
+    pandas.read_csv gives it: NaN where it is one of PANDAS_NA or is
+    missing from a short row, else the string."""
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f, restval="")
+        rows = [{k: math.nan if v in PANDAS_NA else v
+                 for k, v in r.items()} for r in reader]
+        return rows, reader.fieldnames or []
+
+
+def prediction(cell) -> Optional[str]:
+    """The JAX package's rule for a smiles_pred cell: anything but a
+    non-empty string (NaN, a missing column's None) is no prediction."""
+    return cell if isinstance(cell, str) and cell else None
+
+
 def read_results_csv(path: str):
-    """(truths, preds) of a results CSV; an empty prediction is None.
-    Truths come from a `smiles` column or, where there is none, from an
-    `InChI` column converted through chem/inchi.py (an empty cell gives
-    None): the reference's multiprocessing decoder scores against InChI
+    """(truths, preds) of a results CSV, read as the JAX package's cal-acc
+    reads it (abcnet_tpu/__main__.py:_cmd_cal_acc, pandas): each
+    prediction through `prediction`. Truths come from a `smiles` column
+    (NaN where pandas reads NaN) or, where there is none, from an `InChI`
+    column converted through chem/inchi.py (None where the cell is not a
+    string): the reference's multiprocessing decoder scores against InChI
     truths (multi_proc_img2smiles2.py:329-352), as the JAX package's
     cal-acc does (abcnet_tpu/__main__.py:176-189)."""
-    with open(path, newline="") as f:
-        reader = csv.DictReader(f)
-        rows = list(reader)
-        cols = reader.fieldnames or []
-    preds = [r["smiles_pred"] or None for r in rows]
+    rows, cols = read_csv_rows(path)
+    preds = [prediction(r["smiles_pred"]) for r in rows]
     if "smiles" in cols:
         return [r["smiles"] for r in rows], preds
     if "InChI" in cols:
         from ..chem.inchi import inchi_to_smiles
-        return [inchi_to_smiles(r["InChI"]) if r["InChI"] else None
+        return [inchi_to_smiles(r["InChI"])
+                if isinstance(r["InChI"], str) else None
                 for r in rows], preds
     raise SystemExit("results csv needs a 'smiles' or 'InChI' column")

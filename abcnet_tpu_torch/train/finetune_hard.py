@@ -17,11 +17,12 @@ of the budget; checkpoint and EVAL every 1000 steps and at the end; then
 FINAL: the eval split served at batch 16 and scored.
 
 Divergences from the script, each for the card's machine:
-  * the weights: `--ckpt`, a snapshot .npz or a checkpoint directory
-    (default the committed snapshots/r5_latest.npz) with fresh Adam
-    moments at its step, where the script restores the orbax weights/;
-    a relaunch resumes whole from `--out` (default weights_torch/, as
-    the script continues its own weights/) when it holds anything;
+  * the weights: `--ckpt` (default the committed
+    snapshots/r5_latest.npz) where the script restores the orbax
+    weights/: a checkpoint directory continues whole (moments, step), a
+    snapshot .npz with fresh Adam moments at its step; a relaunch resumes
+    whole from `--out` (default weights_torch/, as the script continues
+    its own weights/) when it holds anything (recipe.finetune_state);
   * the mining cache is data_cache/torch_hard_idx_<step>.npy: the
     script's glob (data_cache/hard_idx_*.npy) would pick up such a name
     and its regex, hard_idx_(\\d+), fails on it.

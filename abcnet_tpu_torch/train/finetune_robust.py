@@ -16,12 +16,17 @@ start step); augmentation degrades DEGRADE_P of the images in the
 hard-tail regime (FT_HARD=0: the default regime). Checkpoint and EVAL
 every 1000 steps and at the end.
 
-The weights: `--ckpt`, a snapshot .npz or a checkpoint directory
-(models/weights.py:load_weights; default the committed
-snapshots/r5_latest.npz) with fresh Adam moments at its step, where the
-script restores an orbax weights/ directory; a relaunch resumes whole
-from `out_ckpt` (default weights_torch_robust/) when it holds anything,
-as the script does from weights_robust/.
+The weights: `--ckpt`, a checkpoint directory continued whole (moments,
+step), as the script restores its orbax weights/ directory, or a
+snapshot .npz (default the committed snapshots/r5_latest.npz) with fresh
+Adam moments at its step; a relaunch resumes whole from `out_ckpt`
+(default weights_torch_robust/) when it holds anything, as the script
+does from weights_robust/ (recipe.finetune_state).
+
+The engine-B pool cached under its default name, pool_b_<n // 1000>k.npz
+(the script's, so that the port reads the JAX package's file), must hold
+FT_B_POOL_N rows: two counts in one thousand share that name, and the
+script loads whichever pool is there.
 """
 
 from __future__ import annotations
@@ -71,13 +76,18 @@ def finetune_robust(deadline: float, pool_path: str = DEFAULT_POOL,
     """Fine-tune until `deadline` (on `clock`); returns what the run
     did."""
     dev = resolve_device(device)
-    if b_pool_path is None:
+    derived = b_pool_path is None
+    if derived:
         b_pool_path = os.path.join(recipe.DATA_CACHE,
                                    f"pool_b_{b_pool_n // 1000}k.npz")
     else:
         b_pool_n = 64
     b_samples = ensure_pool(b_pool_path, b_pool_n, sample_fn=_gen_b,
                             seed=31)
+    if derived and len(b_samples) != b_pool_n:
+        raise ValueError(f"engine-B pool {b_pool_path} holds "
+                         f"{len(b_samples)} samples, {b_pool_n} asked for "
+                         "(FT_B_POOL_N)")
     _, train_samples, eval_examples, rng = recipe.split_pool(
         load_pool(pool_path), eval_n)
 

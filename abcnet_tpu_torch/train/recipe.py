@@ -17,8 +17,9 @@ once and keeps the scripts' behaviour:
     git commit of it (up to three attempts; a failure is logged, never
     raised);
   * the fine-tunes' model: the production UNet with FT_REMAT_BLOCKS
-    rematerialized, from a snapshot or checkpoint (`--ckpt`), or resumed
-    whole from the trainer's own output directory.
+    rematerialized, continued from a checkpoint directory whole or from
+    a snapshot's weights (`--ckpt`), or resumed whole from the trainer's
+    own output directory.
 
 Each trainer takes an injectable `clock` (default time.time), which its
 deadline-keyed schedule reads, and a `log` for its lines.
@@ -276,10 +277,14 @@ def has_checkpoint(ckpt_dir: str) -> bool:
 def finetune_state(cfg: trainer.TrainConfig, ckpt: str, out_ckpt: str,
                    log=print) -> Tuple[trainer.TrainState, bool]:
     """The fine-tunes' state: the production UNet with FT_REMAT_BLOCKS,
-    resumed whole (moments, LR, step) from `out_ckpt` when it holds a
-    checkpoint, else the weights of `ckpt` (a snapshot .npz or a
-    checkpoint directory, models/weights.py:load_weights) with fresh
-    Adam moments at the step stored there. Returns (state, resumed)."""
+    resumed whole (moments, LR, step, generator) from `out_ckpt` when it
+    holds a checkpoint, else continued from `ckpt`: a checkpoint directory
+    whole, as the scripts restore their source checkpoint
+    (models/unet.py's remat_blocks renames no parameter, so a plain
+    UNet's step_*.pt loads), or a snapshot .npz, which holds no optimizer
+    state, with fresh Adam moments at its step. Either source must hold
+    the production UNet. Returns (state, resumed), resumed only from
+    `out_ckpt`."""
     dtype = getattr(torch, cfg.dtype)
     model = UNet(dtype=dtype, remat_blocks=FT_REMAT_BLOCKS)
     if has_checkpoint(out_ckpt):
@@ -292,6 +297,9 @@ def finetune_state(cfg: trainer.TrainConfig, ckpt: str, out_ckpt: str,
                          + (" with a fused head bank"
                             if getattr(src, "fused_head_bank", False)
                             else ""))
+    if has_checkpoint(ckpt):
+        state = trainer.create_state(cfg, model=model)
+        return trainer.restore_checkpoint(state, ckpt), False
     model.load_state_dict(src.state_dict())
     state = trainer.create_state(cfg, model=model)
     state.step = step

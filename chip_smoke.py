@@ -94,7 +94,12 @@ per phase:
      the sub-cell and the integer-cell assembler, row-by-row agreement
      with the TPU's smiles_pred; gates: overall exact >= the TPU's 0.8379
      - 0.02, decode rate >= 0.99, one unpack and one NMS launch per
-     serving batch;
+     serving batch; then eval.classify_results and eval.failure_taxonomy
+     (host only) on the run's answers, written as a results CSV (buckets
+     sum to n, `ok` = the isomeric hits of score_pairs, the taxonomy holds
+     every struct miss, no launch), and on logs/final_eval_step43100.csv,
+     each printout's sha256 equal to the JAX script's
+     (FAILURE_BUCKET_DIGESTS);
  14. cli_loop, through the port's main() in a temporary directory: gen ->
      train --synthetic -> img2smiles -> test-acc -> cal-acc on the
      results CSV and on a copy with InChI truths; img2smiles and test-acc
@@ -137,7 +142,10 @@ per phase:
      init (the three learning rates in order, loss finite, EVAL keys, the
      checkpoint, the float16 snapshot stored by its rule, its fixture
      SMILES reported beside the run's weights', the commit logged, one
-     noise launch a train and a metrics step); the committed snapshot's
+     noise launch a train and a metrics step); recipe.finetune_state at
+     batch 128 from that checkpoint directory (its step and every
+     optimizer-state tensor bit-equal to the file's, not a resume, no
+     launch; freed again); the committed snapshot's
      own EVAL and FINAL numbers on the eval split; train.finetune_robust
      (64-row engine B pool; the float16 snapshot of the weights it trained
      serves their SMILES) and train.finetune_hard (mined set against the
@@ -226,6 +234,17 @@ EXAMPLES_BIG_N = 384
 FINAL_EVAL_TPU_EXACT = 0.8379
 FINAL_EVAL_SLACK = 0.02
 FINAL_EVAL_DECODE_MIN = 0.99
+# final_eval: sha256 of the printouts of eval.classify_results and
+# eval.failure_taxonomy at their default arguments on
+# logs/final_eval_step43100.csv, which are the JAX scripts' printouts
+# (tests/test_torch_failure_buckets.py): the card's host stack, without
+# JAX or pandas, holds them byte for byte.
+FAILURE_BUCKET_DIGESTS = {
+    "classify_results":
+        "1880181021b6089bd6819704ac69a06f933e23d459835247f4f8e15530744a1b",
+    "failure_taxonomy":
+        "8d94ba1506f91ff658ec787416a3eea1dead56f40bd37a812cd43c4babdc6d33",
+}
 # cli_loop: test-acc's f32 counts on fixture rows 0-15 against the JAX
 # package's, each within max(2, 1%) (near-tie peaks of f32 logits).
 TESTACC_ABS, TESTACC_REL = 2, 0.01
@@ -2216,7 +2235,58 @@ def phase_final_eval(torch, pools):
                             in enumerate(zip(preds, tpu)) if (p or "") != t])
     if not ok:
         raise AssertionError("the n=256 evaluation is below its gates")
+    buckets = _failure_buckets(truths, preds, allrep, launches)
+    emit("final_eval_failure_buckets", **buckets)
+    if not all(buckets["gates"].values()):
+        raise AssertionError("the failure buckets failed their gates")
     return launches
+
+
+def _failure_buckets(truths, preds, report, launches):
+    """eval.classify_results and eval.failure_taxonomy through their
+    main(argv): on the run's answers, written by write_results_csv to a
+    temporary file (the buckets sum to n, `ok` equals score_pairs'
+    isomeric hits on the same pairs, the taxonomy's lineages hold every
+    struct miss), and on logs/final_eval_step43100.csv (the printouts'
+    digests equal FAILURE_BUCKET_DIGESTS); no kernel is launched."""
+    import hashlib
+    import tempfile
+
+    from abcnet_tpu_torch.eval import classify_results as cr
+    from abcnet_tpu_torch.eval import failure_taxonomy as ft
+    from abcnet_tpu_torch.eval.scoring import write_results_csv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "final_eval.csv")
+        write_results_csv(path, truths, preds)
+        (buckets, _, n), text, cls_s = _entry(cr.main, [path])
+        lineages, tax_text, tax_s = _entry(ft.main, [path])
+    digests, committed_s = {}, {}
+    for name, main_fn in (("classify_results", cr.main),
+                          ("failure_taxonomy", ft.main)):
+        _, out, committed_s[name] = _entry(main_fn, [os.path.join(
+            HERE, "logs", "final_eval_step43100.csv")])
+        digests[name] = hashlib.sha256(out.encode()).hexdigest()
+    isomeric_hits = round(report.exact_match_isomeric * report.n)
+    struct = {lin: rec["n"] for lin, rec in lineages.items()}
+    return {
+        "n": n, "buckets": buckets, "bucket_sum": sum(buckets.values()),
+        "isomeric_hits": isomeric_hits, "struct_by_lineage": struct,
+        "primary_by_lineage": {lin: dict(rec["primary"])
+                               for lin, rec in lineages.items()},
+        "digests": digests, "printout": text, "taxonomy_printout": tax_text,
+        "seconds": {"classify_results": cls_s, "failure_taxonomy": tax_s,
+                    "committed_csv": committed_s},
+        "gates": {
+            "buckets_sum_to_n": sum(buckets.values()) == n == len(truths),
+            "ok_is_the_isomeric_hits": buckets.get("ok", 0) == isomeric_hits,
+            "taxonomy_holds_every_struct_miss":
+                sum(struct.values()) == buckets.get("struct", 0),
+            "no_launch": read_launches() == launches,
+            "committed_csv_printouts_are_the_scripts":
+                digests == FAILURE_BUCKET_DIGESTS,
+        },
+    }
 
 
 def _cli(argv):
@@ -3208,6 +3278,50 @@ def _recipe_train_r5(torch, tmp, pool, fixture, by_path):
     return gates, secs + check_s
 
 
+def _recipe_checkpoint_start(torch, tmp):
+    """recipe.finetune_state on the card at batch 128 from train_r5's
+    checkpoint directory, the output directory empty: the step and every
+    optimizer-state tensor equal to the step_*.pt file's, not a resume,
+    no kernel launched; the state is freed before the fine-tunes."""
+    from abcnet_tpu_torch.train import finetune_robust as fr
+    from abcnet_tpu_torch.train import recipe, trainer
+
+    ck = os.path.join(tmp, "weights_torch")
+    cfg = trainer.TrainConfig(batch_size=FT_BATCH, lr=fr.LR, amount=0.2,
+                              device="cuda", dtype="bfloat16")
+    reset_launches()
+    t0 = time.perf_counter()
+    state, resumed = recipe.finetune_state(
+        cfg, ck, os.path.join(tmp, "checkpoint_start_out"),
+        log=lambda line: None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = read_launches()
+    path = trainer.checkpoint_path(ck)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    want = saved["optimizer"]["state"]
+    got = state.optimizer.state_dict()["state"]
+    unequal = [f"{i}.{k}" for i in want for k in want[i]
+               if i not in got or k not in got[i]
+               or not torch.equal(got[i][k].cpu(), want[i][k])]
+    gates = {
+        "step": state.step == saved["step"],
+        "optimizer_state_bit_equal": bool(want) and sorted(got) ==
+        sorted(want) and not unequal,
+        "not_resumed": not resumed,
+        "remat": state.model.remat_blocks == frozenset(
+            recipe.FT_REMAT_BLOCKS),
+        "no_launch": not any(n.values()),
+    }
+    emit("recipe_checkpoint_start", checkpoint=os.path.basename(path),
+         step=state.step, checkpoint_step=saved["step"], resumed=resumed,
+         optimizer_tensors=sum(len(v) for v in want.values()),
+         unequal=unequal[:10], launches=n, seconds=secs, gates=gates)
+    del state, saved, got
+    torch.cuda.empty_cache()
+    return gates, secs
+
+
 def _recipe_finetune_common(torch, res, text, n, peak, out_dir, extra_unpack,
                             extra_nms):
     """The gates both fine-tunes share."""
@@ -3372,6 +3486,8 @@ def phase_recipe(torch, fixture):
             torch, tmp, by_path)
         gates["train_r5"], times["train_r5"] = _recipe_train_r5(
             torch, tmp, pool, fixture, by_path)
+        gates["checkpoint_start"], times["checkpoint_start"] = \
+            _recipe_checkpoint_start(torch, tmp)
         model, train_samples, ref = _recipe_reference(torch, pool)
         times["snapshot_reference"] = ref["seconds"]
         gates["finetune_robust"], times["finetune_robust"] = _recipe_robust(
@@ -3392,6 +3508,8 @@ def phase_recipe(torch, fixture):
               f"the three LRs in order, loss finite, EVAL keys, checkpoint, "
               f"snapshot stored by the f16 rule, commit logged, one noise "
               f"launch a train and a metrics step, one unpack an EVAL batch; "
+              f"the fine-tunes' state from train_r5's checkpoint directory "
+              f"with its step and optimizer state bit-equal, no launch; "
               f"fine-tunes at batch {FT_BATCH} under the card's memory, LR "
               f"to 1e-5, checkpoint; robust EVAL atom precision >= the "
               f"snapshot's - {RECIPE_SLACK}, its weights' f16 snapshot "

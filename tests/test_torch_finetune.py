@@ -25,10 +25,21 @@ its own output directory at step 990, so that the run crosses the
 Also: `_same_mol` on a table of pairs, main()'s arguments and overrides,
 the refusal without a GPU, and one real run of each on the CPU in f32
 (the port's train_step, serving pipeline and assembler).
+
+A `--ckpt` checkpoint directory is continued whole, as the scripts
+restore theirs: both main()s on a plain UNet's step_*.pt written after
+two real train steps start their first step (Loop.train stopped there)
+from its weights, Adam moments and step, with the fine-tune's LR and the
+generator of a fresh manual_seed(STEP_SEED). A checkpoint directory of
+another model is refused, and so is an engine-B pool cached under the
+default name with another number of rows than FT_B_POOL_N.
 """
 
+import copy
 import hashlib
 import os
+import shutil
+import time
 
 import numpy as np
 import pytest
@@ -368,3 +379,140 @@ def test_one_real_hard_run_on_the_cpu(tiny_pool, tmp_path, monkeypatch):
     assert res.steps == 1 and res.final.n == 2
     assert any(x.startswith("mined ") for x in lines)
     assert lines[-1] == f"FINAL {res.final}"
+
+
+class _FirstStep(Exception):
+    """Raised where a fine-tune would take its first train step."""
+
+
+def stop_at_first_step(monkeypatch):
+    """Loop.train made to record the state it is handed, then to stop the
+    run: what the fine-tune starts its first step from (after its
+    generator reseed and its LR set)."""
+    seen = {}
+
+    def record(self, examples, epoch=None):
+        st = self.state
+        seen.update(step=st.step,
+                    optimizer=copy.deepcopy(st.optimizer.state_dict()),
+                    lrs=[g["lr"] for g in st.optimizer.param_groups],
+                    generator=st.generator.get_state(),
+                    model={k: v.clone()
+                           for k, v in st.model.state_dict().items()},
+                    remat=st.model.remat_blocks)
+        raise _FirstStep
+    monkeypatch.setattr(recipe.Loop, "train", record)
+    return seen
+
+
+@pytest.fixture(scope="module")
+def plain_checkpoint(tmp_path_factory):
+    """(directory, file): a plain production UNet (no remat) after two
+    real f32 train steps at LR 1e-3 on 64² synthetic images, saved by
+    trainer.save_checkpoint: Adam moments that are not zero, step 2."""
+    from abcnet_tpu_torch.data.pipeline import synthetic_batch
+    from abcnet_tpu_torch.train import trainer
+
+    state = trainer.create_state(trainer.TrainConfig(
+        device="cpu", dtype="float32", lr=1e-3))
+    assert not state.model.remat_blocks
+    batch = trainer.to_device(synthetic_batch(2, seed=1, size=64), "cpu")
+    for _ in range(2):
+        trainer.train_step(state, batch, with_metrics=False)
+    root = tmp_path_factory.mktemp("plain_ckpt")
+    return str(root), trainer.save_checkpoint(state, str(root))
+
+
+def assert_continues_the_checkpoint(seen, path, lr, step_seed):
+    """The state before the first fine-tune step holds the checkpoint's
+    weights, Adam moments and step, the fine-tune's LR, and the generator
+    of a fresh manual_seed(step_seed)."""
+    ck = torch.load(path, weights_only=True)
+    assert seen["step"] == ck["step"] == 2
+    want, got = ck["optimizer"]["state"], seen["optimizer"]["state"]
+    assert want and sorted(got) == sorted(want)
+    for i in want:
+        assert sorted(got[i]) == sorted(want[i])
+        for k in want[i]:
+            assert torch.equal(got[i][k], want[i][k]), (i, k)
+    assert any(float(v["exp_avg"].abs().max()) > 0 for v in want.values())
+    assert [g["lr"] for g in ck["optimizer"]["param_groups"]] == [1e-3]
+    assert seen["lrs"] == [lr]
+    assert torch.equal(seen["generator"],
+                       torch.Generator().manual_seed(step_seed).get_state())
+    # the plain UNet's parameters load into the remat model by name
+    assert seen["remat"] == frozenset(recipe.FT_REMAT_BLOCKS)
+    assert sorted(seen["model"]) == sorted(ck["model"])
+    for k, v in ck["model"].items():
+        assert torch.equal(seen["model"][k], v), k
+
+
+def test_robust_continues_a_checkpoint_directory_whole(
+        tiny_pool, plain_checkpoint, tmp_path, monkeypatch, capsys):
+    ckpt_dir, path = plain_checkpoint
+    seen = stop_at_first_step(monkeypatch)
+    monkeypatch.setenv("FT_EVAL_N", "2")
+    monkeypatch.setenv("FT_BATCH", "2")
+    b_pool = os.path.join(os.path.dirname(tiny_pool), "b.npz")
+    with pytest.raises(_FirstStep):
+        fr.main([repr(time.time() + 3600), tiny_pool, b_pool,
+                 str(tmp_path / "out"), "--ckpt", ckpt_dir,
+                 "--device", "cpu"])
+    assert_continues_the_checkpoint(seen, path, fr.LR, fr.STEP_SEED)
+    out = capsys.readouterr().out
+    assert "start step 2 (resume=False)" in out
+    assert "fresh Adam moments" not in out
+
+
+def test_hard_continues_a_checkpoint_directory_whole(
+        tiny_pool, plain_checkpoint, tmp_path, monkeypatch, capsys):
+    ckpt_dir, path = plain_checkpoint
+    seen = stop_at_first_step(monkeypatch)
+    for k in ("EVAL_N", "BATCH"):
+        monkeypatch.setattr(fh, k, 2)
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    np.save(cache / f"{fh.CACHE_PREFIX}2.npy", np.array([0, 3]))
+    with pytest.raises(_FirstStep):
+        fh.main([repr(time.time() + 3600), tiny_pool, "--ckpt", ckpt_dir,
+                 "--out", str(tmp_path / "other"), "--cache-dir",
+                 str(cache), "--device", "cpu"])
+    assert_continues_the_checkpoint(seen, path, fh.LR, fh.STEP_SEED)
+    out = capsys.readouterr().out
+    assert "start step 2" in out and "fresh Adam moments" not in out
+
+
+@pytest.mark.parametrize("variant", ["s2d", "fused_head_bank"])
+def test_a_checkpoint_directory_of_another_model_is_refused(tmp_path,
+                                                            variant):
+    from abcnet_tpu_torch.models.unet import UNet
+    from abcnet_tpu_torch.models.unet_s2d import UNetS2D
+    from abcnet_tpu_torch.train import trainer
+
+    model = UNetS2D() if variant == "s2d" else UNet(fused_head_bank=True)
+    cfg = trainer.TrainConfig(device="cpu", dtype="float32")
+    trainer.save_checkpoint(trainer.create_state(cfg, model=model),
+                            str(tmp_path / "src"))
+    with pytest.raises(ValueError, match="production UNet, not a " + (
+            "UNetS2D" if variant == "s2d" else
+            "UNet with a fused head bank")):
+        recipe.finetune_state(cfg, str(tmp_path / "src"),
+                              str(tmp_path / "out"))
+
+
+@pytest.mark.parametrize("b_pool_n", [500, 1500])
+def test_a_default_b_pool_of_another_size_is_refused(tiny_pool, tmp_path,
+                                                      monkeypatch, b_pool_n):
+    """The 64-row engine-B pool cached under the name that FT_B_POOL_N
+    derives (pool_b_0k.npz, pool_b_1k.npz) does not stand in for it."""
+    cache = tmp_path / "data_cache"
+    cache.mkdir()
+    name = f"pool_b_{b_pool_n // 1000}k.npz"
+    shutil.copy(os.path.join(os.path.dirname(tiny_pool), "b.npz"),
+                cache / name)
+    monkeypatch.setattr(recipe, "DATA_CACHE", str(cache))
+    with pytest.raises(ValueError, match=rf"{name} holds 64 samples, "
+                                         rf"{b_pool_n} asked for"):
+        fr.finetune_robust(1.0, tiny_pool, out_ckpt=str(tmp_path / "out"),
+                           b_pool_n=b_pool_n, device="cpu",
+                           log=lambda line: None)

@@ -26,6 +26,7 @@ failure, and one real run on the CPU in f32 (the port's train_step).
 
 import os
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -284,7 +285,10 @@ def test_commit_in_a_repository_and_a_logged_failure(tmp_path,
     snap = repo / "snap.npz"
     snap.write_bytes(b"x")
     logged, slept = [], []
-    monkeypatch.setattr(recipe.time, "sleep", slept.append)
+    # recipe's own retry sleeps only: subprocess's wait polls through the
+    # time module's sleep while git is still running
+    monkeypatch.setattr(recipe, "time", types.SimpleNamespace(
+        sleep=slept.append))
     recipe.commit_snapshot(str(snap), 2500, logged.append)
     log = subprocess.run(["git", "-C", str(repo), "log", "--format=%s"],
                          capture_output=True, text=True).stdout
