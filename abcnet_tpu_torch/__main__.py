@@ -370,11 +370,10 @@ def main(argv=None) -> None:
     b.add_argument("--batch", type=int, default=64,
                    help="inference batch (the headline stays 64 for the "
                         "BASELINE.json comparison; larger for sweeps)")
-    b.add_argument("--train-batch", type=int, default=64,
-                   help="training batch; 64, not the JAX bench's 128: batch "
-                        "128 runs out of an H100's 79.18 GiB in its first "
-                        "step, at 77.05-77.29 GiB allocated (chip_smoke.py "
-                        "phase bench_probe); batch 64 peaks at 44.25 GiB")
+    b.add_argument("--train-batch", type=int, default=128,
+                   help="training batch (the JAX bench's default); the "
+                        "record's train_peak_gib says what it takes of the "
+                        "card")
     b.add_argument("--dense", action="store_true",
                    help="A/B: dense head maps instead of the sparse "
                         "peak-cell head evaluation")

@@ -1,7 +1,7 @@
 """Headline benchmark of the port: serving images/sec on one GPU at batch
 64, plus a train-step benchmark; one JSON record.
 
-    python -m abcnet_tpu_torch bench [--batch 64] [--train-batch 64]
+    python -m abcnet_tpu_torch bench [--batch 64] [--train-batch 128]
         [--dense] [--skip-train] [--ckpt NPZ_OR_DIR] [--device cuda]
 
 Counterpart of the repo-root bench.py of the JAX package: the same

@@ -15,7 +15,9 @@ NHWC tensor is already NCHW in memory).
 Precision follows the JAX module's `dtype`: parameters stay f32 master
 weights, each conv casts its input and weights to `dtype` (bf16 in
 production), BatchNorm runs in f32 and its output is cast back after
-the activation. Heads stay in `dtype`. No autocast.
+the activation (`BatchNorm.act`; in train mode one op, ops/bn_act.py,
+that keeps only the conv output in `dtype` for the backward). Heads
+stay in `dtype`. No autocast.
 
 Train mode (`model.train()`) follows Flax, not torch's defaults, in two
 places. BatchNorm normalizes with the batch statistics and moves its
@@ -29,8 +31,8 @@ Data parallel: `BatchNorm.group` (set on every BatchNorm of a model by
 `parallel.sync_batchnorm`) is the process group of a data-parallel run.
 In train mode with more than one rank the batch statistics are those of
 the *global* batch (what the JAX package's SPMD step computes over its
-mesh), and the backward all-reduces the two sums it needs; every rank
-ends with the same running statistics.
+mesh), and the backward all-reduces the two sums it needs (ops/bn_act.py);
+every rank ends with the same running statistics.
 
 Options of the JAX module (abcnet_tpu/models/unet.py:138-151):
 `fused_head_bank=True` computes the eight OutConv 3x3 convs as one conv
@@ -50,10 +52,11 @@ import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..ops.bn_act import activation, bn_act
 
 PRODUCTION_HEADS: Tuple[int, ...] = (1, 14, 3, 2, 1, 360, 60, 60)
 
@@ -78,98 +81,44 @@ def _recomputing():
         _RECOMPUTE.active = False
 
 
-class _GlobalBatchNorm(torch.autograd.Function):
-    """Train-mode batch norm over the global batch of a process group.
-
-    Forward: each rank's (count, mean, biased variance) per channel, f32,
-    one all_gather, then the pooled mean and variance (the counts weight
-    the means, and the spread of the means is added to the variances, so
-    no E[x^2] - E[x]^2 cancellation). Backward: the per-channel sums of dy
-    and dy·x̂ are all-reduced, and
-
-        dx = γ/σ · (dy - Σdy/N - x̂ · Σ(dy·x̂)/N)
-
-    with N the global count. The weight and bias gradients stay this
-    rank's sums; the gradient all-reduce of the trainer adds them up."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps, group):
-        c = x.shape[1]
-        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-        count = torch.full((1,), x.numel() // c, dtype=x.dtype,
-                           device=x.device)
-        mine = torch.cat([count, mean_l, var_l])
-        parts = [torch.empty_like(mine)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, mine, group=group)
-        g = torch.stack(parts)
-        counts, means, vars_ = g[:, :1], g[:, 1:c + 1], g[:, c + 1:]
-        n = counts.sum()
-        mean = (counts * means).sum(0) / n
-        var = (counts * (vars_ + (means - mean) ** 2)).sum(0) / n
-        invstd = torch.rsqrt(var + eps)
-        out = (x - mean[:, None, None]) * (invstd * weight)[:, None, None] \
-            + bias[:, None, None]
-        ctx.save_for_backward(x, weight, mean, invstd)
-        ctx.group, ctx.n = group, n
-        ctx.mark_non_differentiable(mean, var, n)
-        return out, mean, var, n
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar, _dn):
-        x, weight, mean, invstd = ctx.saved_tensors
-        xhat = (x - mean[:, None, None]) * invstd[:, None, None]
-        sums = torch.cat([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
-        local = sums.clone()
-        dist.all_reduce(sums, group=ctx.group)
-        c = x.shape[1]
-        g_dy, g_dyx = sums[:c] / ctx.n, sums[c:] / ctx.n
-        dx = (weight * invstd)[:, None, None] * (
-            dy - g_dy[:, None, None] - xhat * g_dyx[:, None, None])
-        return dx, local[c:], local[:c], None, None
-
-
 class BatchNorm(nn.BatchNorm2d):
-    """f32 batch norm with Flax's running-statistics update.
+    """f32 batch norm with Flax's running-statistics update, applied with
+    its activation and cast (`act`).
 
     Eval: normalizes with the running statistics, as nn.BatchNorm2d.
-    Train: normalizes with the batch statistics and updates
+    Train: normalizes with the batch statistics (ops/bn_act.py, which
+    keeps only the conv output for the backward) and updates
 
         running = 0.9 * running + 0.1 * batch
 
     with the biased batch variance, as flax.linen.BatchNorm(momentum=0.9)
-    does (abcnet_tpu/models/unet.py:45-46). torch's own update would use
-    the unbiased variance, n/(n-1) larger. On one rank F.batch_norm is
-    therefore given zeroed scratch buffers and momentum 1, which leaves
-    the batch mean and the unbiased batch variance in them without
-    another pass over the activation; the variance is scaled back by
-    (n-1)/n. With a process group of more than one rank (`group`), the
-    batch is the global one (`_GlobalBatchNorm`)."""
+    does (abcnet_tpu/models/unet.py:45-46); torch's own update would use
+    the unbiased variance, n/(n-1) larger. With a process group of more
+    than one rank (`group`), the batch is the global one."""
 
     group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def act(self, x: torch.Tensor, act: str,
+            dtype: torch.dtype) -> torch.Tensor:
+        """act(bn(x)) in `dtype`, x the conv output; act is "relu",
+        "leaky_relu" (slope 0.01) or "none"."""
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        if self.group is not None and dist.get_world_size(self.group) > 1:
-            out, mean, var, _ = _GlobalBatchNorm.apply(
-                x, self.weight, self.bias, self.eps, self.group)
-            unbias = 1.0
-        else:
-            mean = torch.zeros_like(self.running_mean)
-            var = torch.zeros_like(self.running_var)
-            out = F.batch_norm(x, mean, var, self.weight, self.bias, True,
-                               1.0, self.eps)
-            n = x.numel() // x.shape[1]
-            unbias = (n - 1) / n
+            out = F.batch_norm(x.float(), self.running_mean,
+                               self.running_var, self.weight, self.bias,
+                               False, 0.0, self.eps)
+            return activation(act)(out).to(dtype)
+        y, mean, var = bn_act(x, self.weight, self.bias, self.eps, act,
+                              self.group)
         if not getattr(_RECOMPUTE, "active", False):
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
                     mean, alpha=self.momentum)
                 self.running_var.mul_(1 - self.momentum).add_(
-                    var, alpha=self.momentum * unbias)
-        return out
+                    var, alpha=self.momentum)
+        return y.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(x, "none", x.dtype)
 
 
 def remat(fn: Callable, *args, generator: Optional[torch.Generator] = None):
@@ -219,7 +168,7 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
-            x = F.relu(bn(_conv(conv, x, dtype).float())).to(dtype)
+            x = bn.act(_conv(conv, x, dtype), "relu", dtype)
         return x
 
 
@@ -298,9 +247,8 @@ class OutConv(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        x = self.bn0(_conv(self.conv0, x, dtype).float())
-        x = _dropout(F.leaky_relu(x, 0.01).to(dtype), self.training,
-                     generator)
+        x = self.bn0.act(_conv(self.conv0, x, dtype), "leaky_relu", dtype)
+        x = _dropout(x, self.training, generator)
         return _conv(self.conv1, x, dtype)
 
 
@@ -431,9 +379,9 @@ class _Trunk(nn.Module):
         LeakyReLU, dropout, then each head's 1x1 on its 128 channels
         (unet.py:169-185 of the JAX package)."""
         dt = self.dtype
-        yb = self.head_bank_bn(_conv(self.head_bank, y, dt).float())
-        yb = _dropout(F.leaky_relu(yb, 0.01).to(dt), self.training,
-                      generator)
+        yb = self.head_bank_bn.act(_conv(self.head_bank, y, dt), "leaky_relu",
+                                   dt)
+        yb = _dropout(yb, self.training, generator)
         # One split, not n slices: its backward is a single concatenation
         # of the heads' gradients, where a slice's backward writes a zero
         # tensor of the whole bank for each head.

@@ -1,0 +1,408 @@
+"""Train-mode BatchNorm -> activation -> cast as one autograd op.
+
+`bn_act(x, weight, bias, eps, act, group)` is the port's one train-mode
+BatchNorm. It replaces the chain `act(F.batch_norm(x.float())).to(dtype)`,
+which keeps an f32 copy of the conv output and an f32 activation output
+for its backward, with an op that keeps the conv output `x` itself (bf16
+in production) and per-channel vectors, and recomputes the normalisation
+in the backward. The JAX package gets the same from XLA, which fuses
+nn.BatchNorm(dtype=f32) -> relu -> astype(bf16) (abcnet_tpu/models/
+unet.py:41-48); no Pallas kernel stands behind it.
+
+A CUDA tensor goes through the four kernels of `csrc/bn_act.cu` (stats,
+apply, backward sums, backward apply), which take channels_last, the
+layout the port's convolutions run in (the 1-channel input's NHWC view is
+both layouts, and the convolutions keep channels_last from there; another
+layout is copied to it). y and dx are channels_last, as the chain's
+outputs were, so the heads' dropout, which draws its keep mask in memory
+order, draws the masks it drew before. A CPU tensor goes through
+`bn_act_plain`, whose forward is the former chain's exact op sequence
+(F.batch_norm with zeroed scratch buffers and momentum 1) under no_grad,
+and whose backward runs that sequence again with grad enabled: on the
+CPU its outputs, batch statistics and gradients are those of the chain,
+bit for bit.
+
+With a process group of more than one rank (`group`, data parallel) the
+statistics are those of the global batch: each rank's (count, mean,
+biased variance) is all-gathered between the statistics and the apply and
+pooled (the counts weight the means, the spread of the means adds to the
+variances), and the backward all-reduces the two sums between its
+reduction and its apply. The weight and bias gradients stay this rank's
+sums; the trainer's gradient all-reduce adds them up.
+
+Each kernel entry point counts its launches (`stats.launches`, ...), as
+ops/unpack.py does; `launches()` is their sum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from ..utils import build
+from ..utils.device import stream_ptr
+
+ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
+LEAKY_SLOPE = 0.01
+DTYPES = (torch.bfloat16, torch.float32)
+CHANNELS_LAST = torch.channels_last
+# blocks aimed at by a reduction (132 SMs x 8), and the fewest pixels a
+# thread row of a block takes
+TARGET_BLOCKS = 132 * 8
+MIN_ROWS = 4
+
+
+def activation(act: str):
+    """The activation `act` names, as a function of a tensor."""
+    if act == "relu":
+        return F.relu
+    if act == "leaky_relu":
+        return lambda t: F.leaky_relu(t, LEAKY_SLOPE)
+    return lambda t: t
+
+
+def _pooled(count: float, mean: torch.Tensor, var: torch.Tensor, group):
+    """The global batch's (mean, biased variance, count) from every rank's
+    (count, mean, biased variance), all-gathered in f32."""
+    c = mean.numel()
+    mine = torch.cat([torch.full((1,), count, dtype=mean.dtype,
+                                 device=mean.device), mean, var])
+    parts = [torch.empty_like(mine)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    g = torch.stack(parts)
+    counts, means, vars_ = g[:, :1], g[:, 1:c + 1], g[:, c + 1:]
+    n = counts.sum()
+    mean = (counts * means).sum(0) / n
+    var = (counts * (vars_ + (means - mean) ** 2)).sum(0) / n
+    return mean, var, n
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[:, None, None]
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("bn_act")
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    sig = {
+        "abcnet_bn_act_stats": [p, i, i, ll, ll, i, ll, p, f, p, p],
+        "abcnet_bn_act_apply": [p, p, i, i, i, ll, ll, p, p, p, p],
+        "abcnet_bn_act_grad_sums": [p, p, i, i, i, ll, ll, i, ll, p, p, p,
+                                    p, p, p],
+        "abcnet_bn_act_grad_apply": [p, p, p, i, i, i, ll, ll, p, p, p, p, f,
+                                     p],
+    }
+    for name, args in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _shape(x: torch.Tensor) -> Tuple[int, int]:
+    """(pixels N*H*W, C) of a CUDA tensor the kernels take; raises on what
+    they do not."""
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_act kernels: unsupported device {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"bn_act kernels take bf16 or f32, not {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous(memory_format=CHANNELS_LAST):
+        raise ValueError("bn_act kernels take a channels_last NCHW tensor")
+    n, c, h, w = x.shape
+    pixels = n * h * w
+    if pixels == 0 or pixels >= 2 ** 31:
+        raise ValueError(f"bn_act kernels: unsupported shape {tuple(x.shape)}")
+    return pixels, c
+
+
+def _check_vectors(x: torch.Tensor, *vs: torch.Tensor) -> None:
+    """The per-channel operands: contiguous f32 on x's device."""
+    for v in vs:
+        if v.dtype != torch.float32 or v.device != x.device or \
+                not v.is_contiguous() or v.shape[-1] != x.shape[1]:
+            raise ValueError("bn_act kernels take contiguous f32 per-channel "
+                             "vectors on the input's device")
+
+
+def _check_dy(x: torch.Tensor, dy: torch.Tensor) -> None:
+    if dy.shape != x.shape or dy.dtype != x.dtype or \
+            dy.device != x.device or \
+            not dy.is_contiguous(memory_format=CHANNELS_LAST):
+        raise ValueError("bn_act kernels: dy must match x in shape, type, "
+                         "device and layout")
+
+
+def _vec(c: int, *tensors: torch.Tensor) -> int:
+    """1 where 16-byte accesses fit (C a multiple of 16 bytes of values,
+    every pointer aligned), else 0."""
+    return int(c * tensors[0].element_size() % 16 == 0 and
+               all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _split(pixels: int, c: int, vec: int, el: int) -> Tuple[int, int]:
+    """(P, pixels a chunk) of a reduction: a block covers TX channel
+    vectors (TX as csrc/bn_act.cu:reduce_block chooses it) and a chunk of
+    the pixels, with about TARGET_BLOCKS blocks and at least MIN_ROWS
+    pixels a thread row."""
+    cv = c // (16 // el) if vec else c
+    tx = 1
+    while tx < cv and tx < 256:
+        tx *= 2
+    across = -(-cv // tx)
+    blocks = max(1, min(-(-TARGET_BLOCKS // across),
+                        -(-pixels // (256 // tx * MIN_ROWS)), 65535))
+    chunk = -(-pixels // blocks)
+    return -(-pixels // chunk), chunk
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"bn_act {what} kernel launch failed (CUDA error "
+                           f"{err})")
+
+
+def stats(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Kernel (a): (3, C) f32 rows mean, biased variance and 1/sqrt(var +
+    eps) of channels_last `x` per channel."""
+    pixels, c = _shape(x)
+    vec = _vec(c, x)
+    blocks, chunk = _split(pixels, c, vec, x.element_size())
+    part = torch.empty(2 * c * blocks, dtype=torch.float32, device=x.device)
+    out = torch.empty(3, c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().abcnet_bn_act_stats(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), vec, pixels, c,
+            blocks, chunk, part.data_ptr(), eps, out.data_ptr(),
+            stream_ptr(x))
+    _check(err, "stats")
+    stats.launches += 1
+    return out
+
+
+def apply(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
+          bias: torch.Tensor, act: str) -> torch.Tensor:
+    """Kernel (b): act((x - mean) * invstd * weight + bias) in x's type,
+    channels_last, with `st` the (3, C) rows of `stats`."""
+    pixels, c = _shape(x)
+    _check_vectors(x, st, weight, bias)
+    y = torch.empty_like(x)
+    vec = _vec(c, x, y)
+    with torch.cuda.device(x.device):
+        err = _lib().abcnet_bn_act_apply(
+            x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), vec,
+            ACTS[act], pixels, c, st.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), stream_ptr(x))
+    _check(err, "apply")
+    apply.launches += 1
+    return y
+
+
+def grad_sums(x: torch.Tensor, dy: torch.Tensor, st: torch.Tensor,
+              weight: torch.Tensor, bias: torch.Tensor,
+              act: str) -> torch.Tensor:
+    """Kernel (c): (2, C) f32 rows sum(g) and sum(g * xhat) per channel,
+    g = dy * act'(pre)."""
+    pixels, c = _shape(x)
+    _check_vectors(x, st, weight, bias)
+    _check_dy(x, dy)
+    vec = _vec(c, x, dy)
+    blocks, chunk = _split(pixels, c, vec, x.element_size())
+    part = torch.empty(2 * c * blocks, dtype=torch.float32, device=x.device)
+    sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().abcnet_bn_act_grad_sums(
+            x.data_ptr(), dy.data_ptr(), int(x.dtype == torch.bfloat16), vec,
+            ACTS[act], pixels, c, blocks, chunk, st.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), stream_ptr(x))
+    _check(err, "backward sums")
+    grad_sums.launches += 1
+    return sums
+
+
+def grad_apply(x: torch.Tensor, dy: torch.Tensor, st: torch.Tensor,
+               weight: torch.Tensor, bias: torch.Tensor, sums: torch.Tensor,
+               inv_n: float, act: str) -> torch.Tensor:
+    """Kernel (d): dx = weight * invstd * (g - sums[0] * inv_n - xhat *
+    sums[1] * inv_n) in x's type, channels_last."""
+    pixels, c = _shape(x)
+    _check_vectors(x, st, weight, bias, sums)
+    _check_dy(x, dy)
+    dx = torch.empty_like(x)
+    vec = _vec(c, x, dy, dx)
+    with torch.cuda.device(x.device):
+        err = _lib().abcnet_bn_act_grad_apply(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            int(x.dtype == torch.bfloat16), vec, ACTS[act], pixels, c,
+            st.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            sums.data_ptr(), inv_n, stream_ptr(x))
+    _check(err, "backward apply")
+    grad_apply.launches += 1
+    return dx
+
+
+KERNELS = (stats, apply, grad_sums, grad_apply)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def launches() -> int:
+    """Launches of the four kernels since their counts were last zeroed."""
+    return sum(k.launches for k in KERNELS)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The op
+# ---------------------------------------------------------------------------
+
+def _plain_forward(x, weight, bias, eps, act, group):
+    """(y, (3, C) rows mean, biased var and invstd, global count or None)
+    by the plain op sequence."""
+    xf = x.float()
+    c = x.shape[1]
+    if group is None:
+        mean = torch.zeros(c, dtype=torch.float32, device=x.device)
+        var = torch.zeros(c, dtype=torch.float32, device=x.device)
+        out = F.batch_norm(xf, mean, var, weight, bias, True, 1.0, eps)
+        n = x.numel() // c
+        var = var * ((n - 1) / n)     # F.batch_norm leaves the unbiased one
+        n_all = None
+    else:
+        var_l, mean_l = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        mean, var, n_all = _pooled(x.numel() // c, mean_l, var_l, group)
+        out = (xf - _per_channel(mean)) * _per_channel(
+            torch.rsqrt(var + eps) * weight) + _per_channel(bias)
+    y = activation(act)(out).to(x.dtype)
+    return y, torch.stack([mean, var, torch.rsqrt(var + eps)]), n_all
+
+
+def _plain_backward(ctx, dy):
+    x, weight, bias, st = ctx.saved_tensors
+    act, eps, group = ctx.act, ctx.eps, ctx.group
+    if group is None:
+        with torch.enable_grad():
+            xf = x.detach().float().requires_grad_(True)
+            w = weight.detach().requires_grad_(True)
+            b = bias.detach().requires_grad_(True)
+            c = x.shape[1]
+            out = F.batch_norm(xf, torch.zeros(c, device=x.device),
+                               torch.zeros(c, device=x.device), w, b, True,
+                               1.0, eps)
+            y = activation(act)(out).to(x.dtype)
+            dx, dw, db = torch.autograd.grad(y, (xf, w, b), dy)
+        return dx.to(x.dtype), dw, db
+    mean, invstd = st[0], st[2]
+    xf = x.float()
+    with torch.enable_grad():
+        out = ((xf - _per_channel(mean)) * _per_channel(invstd * weight)
+               + _per_channel(bias)).requires_grad_(True)
+        g, = torch.autograd.grad(activation(act)(out).to(x.dtype), out, dy)
+    xhat = (xf - _per_channel(mean)) * _per_channel(invstd)
+    sums = torch.cat([g.sum((0, 2, 3)), (g * xhat).sum((0, 2, 3))])
+    local = sums.clone()
+    dist.all_reduce(sums, group=group)
+    c = x.shape[1]
+    g_dy, g_dyx = sums[:c] / ctx.n, sums[c:] / ctx.n
+    dx = _per_channel(weight * invstd) * (
+        g - _per_channel(g_dy) - xhat * _per_channel(g_dyx))
+    return dx.to(x.dtype), local[c:], local[:c]
+
+
+class _BnAct(torch.autograd.Function):
+    """Saves x (the conv output, in its own type), the weight and bias,
+    and the (3, C) rows mean, biased variance and invstd: nothing of
+    activation size in f32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, act, group, plain):
+        ctx.act, ctx.eps, ctx.group, ctx.plain = act, eps, group, plain
+        ctx.n = None
+        if plain:
+            y, st, ctx.n = _plain_forward(x, weight, bias, eps, act, group)
+        else:
+            x = x.contiguous(memory_format=CHANNELS_LAST)
+            st = stats(x, eps)
+            if group is not None:
+                n, c, h, w = x.shape
+                mean, var, ctx.n = _pooled(n * h * w, st[0], st[1], group)
+                st = torch.stack([mean, var, torch.rsqrt(var + eps)])
+            y = apply(x, st, weight, bias, act)
+        ctx.save_for_backward(x, weight, bias, st)
+        mean, var = st[0], st[1]
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        if ctx.plain:
+            dx, dw, db = _plain_backward(ctx, dy)
+            return dx, dw, db, None, None, None, None
+        x, weight, bias, st = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous(memory_format=CHANNELS_LAST)
+        sums = grad_sums(x, dy, st, weight, bias, ctx.act)
+        local = sums
+        if ctx.group is None:
+            inv_n = 1.0 / (x.numel() // x.shape[1])
+        else:
+            sums = sums.clone()
+            dist.all_reduce(sums, group=ctx.group)
+            sums = sums / ctx.n
+            inv_n = 1.0
+        dx = grad_apply(x, dy, st, weight, bias, sums, inv_n, ctx.act)
+        return dx, local[1], local[0], None, None, None, None
+
+
+def _group(group):
+    return group if group is not None and dist.get_world_size(group) > 1 \
+        else None
+
+
+def bn_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           eps: float, act: str, group=None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(act(weight * xhat + bias) in x's type, batch mean, biased batch
+    variance) of NCHW `x` in train mode, xhat normalised with the batch
+    statistics in f32. `act`: "relu", "leaky_relu" (slope 0.01) or
+    "none". `group`: the process group of a data-parallel run (statistics
+    of the global batch). The mean and variance are not differentiable.
+
+    A CUDA tensor goes through the kernels, launched on its device, a CPU
+    tensor through `bn_act_plain`; anything else raises."""
+    if act not in ACTS:
+        raise ValueError(f"bn_act: act {act!r} is none of {sorted(ACTS)}")
+    if x.device.type == "cpu":
+        return bn_act_plain(x, weight, bias, eps, act, group)
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_act: unsupported device {x.device}")
+    return _BnAct.apply(x, weight, bias, eps, act, _group(group), False)
+
+
+def bn_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 eps: float, act: str, group: Optional[object] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of `bn_act`, on any device: the forward is the chain
+    `act(F.batch_norm(x.float(), zeros, zeros, weight, bias, True, 1.0,
+    eps)).to(x.dtype)` under no_grad (with a group: the pooled statistics
+    and the normalisation written out), the backward that chain again
+    with grad enabled and torch.autograd.grad (with a group: the two sums
+    all-reduced between the reduction and the apply)."""
+    if act not in ACTS:
+        raise ValueError(f"bn_act: act {act!r} is none of {sorted(ACTS)}")
+    return _BnAct.apply(x, weight, bias, eps, act, _group(group), True)

@@ -22,7 +22,8 @@ is one process per GPU:
     what one process at the global batch sees;
   * `replicate_tree` broadcasts rank 0's parameters and buffers;
   * `sync_batchnorm` hands the group to every BatchNorm of a model, which
-    then normalizes over the global batch (models/unet.py).
+    then normalizes over the global batch (ops/bn_act.py:bn_act with
+    `group`).
 """
 
 from __future__ import annotations
@@ -130,7 +131,9 @@ def replicate_tree(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
 
 def sync_batchnorm(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Every BatchNorm of `module` normalizes over the global batch of the
-    mesh's ranks in train mode."""
+    mesh's ranks in train mode: its `group` goes to ops/bn_act.py:bn_act,
+    which all-gathers the ranks' statistics in the forward and all-reduces
+    the two sums of the backward."""
     from ..models.unet import BatchNorm
     for m in module.modules():
         if isinstance(m, BatchNorm):

@@ -16,10 +16,10 @@ once and keeps the scripts' behaviour:
     (models/weights.py:save_snapshot_f16), written in-process, then a
     git commit of it (up to three attempts; a failure is logged, never
     raised);
-  * the fine-tunes' model: the production UNet with FT_REMAT_BLOCKS
-    rematerialized, continued from a checkpoint directory whole or from
-    a snapshot's weights (`--ckpt`), or resumed whole from the trainer's
-    own output directory.
+  * the fine-tunes' model: the production UNet (FT_REMAT_BLOCKS
+    rematerialized: none), continued from a checkpoint directory whole or
+    from a snapshot's weights (`--ckpt`), or resumed whole from the
+    trainer's own output directory.
 
 Each trainer takes an injectable `clock` (default time.time), which its
 deadline-keyed schedule reads, and a `log` for its lines.
@@ -58,15 +58,13 @@ METRICS_EVERY = 10          # the sampled metrics step (every 10th step)
 FT_TAIL_FRACTION = 0.85     # the fine-tunes' LR drop point in the budget
 FT_TAIL_LR = 1e-5
 # The fine-tunes train at batch 128 (scripts/finetune_hard.py:43,
-# finetune_robust.py:40), where the plain step does not fit the H100's
-# 80 GB (77.05 GiB allocated in its first step). Recomputing the eight
-# heads' activations in the backward (models/unet.py `remat_blocks`, the
-# same losses as the plain step) is the smallest set that brings it under
-# 70 GiB: on an NVIDIA H100 80GB HBM3 at 700.00 W, 64.19 GiB and 476.75 ms
-# a step, where the 512² levels inc1 + inc2 (the JAX module's first
-# candidates) leave 70.19 GiB and inc1 + inc2 + down1 65.69 GiB at 482.31
-# ms (`chip_smoke.py --phases remat_probe`; PERF.md §5).
-FT_REMAT_BLOCKS = ("heads",)
+# finetune_robust.py:40) with the plain step, as the scripts do: the
+# train-mode BatchNorm keeps only the bf16 conv output for its backward
+# (ops/bn_act.py), so the step fits one H100 80GB without recomputing a
+# block (PERF.md §5 has its peak). The blocks named here would be
+# rematerialized (models/unet.py `remat_blocks`, an option of the JAX
+# module too).
+FT_REMAT_BLOCKS = ()
 COMMIT_ATTEMPTS = 3
 COMMIT_RETRY_S = 5.0
 
@@ -276,7 +274,8 @@ def has_checkpoint(ckpt_dir: str) -> bool:
 
 def finetune_state(cfg: trainer.TrainConfig, ckpt: str, out_ckpt: str,
                    log=print) -> Tuple[trainer.TrainState, bool]:
-    """The fine-tunes' state: the production UNet with FT_REMAT_BLOCKS,
+    """The fine-tunes' state: the production UNet (FT_REMAT_BLOCKS
+    rematerialized),
     resumed whole (moments, LR, step, generator) from `out_ckpt` when it
     holds a checkpoint, else continued from `ckpt`: a checkpoint directory
     whole, as the scripts restore their source checkpoint

@@ -20,7 +20,10 @@ per phase:
      below-threshold maps, on maps that try the seams between the
      kernel's bands of rows, K = 128 and 160, on an odd shape and on
      K = H*W, f32 and bf16, every cluster size, and both heatmaps in one
-     launch against two plain calls);
+     launch against two plain calls; bn_act, the train-mode BatchNorm ->
+     activation -> cast, forward and backward against bn_act_plain at
+     the inc1, down5, head and fused-head-bank shapes of a batch of 64,
+     bf16 and f32, each activation, within stated tolerances);
   3. f32 serving (TF32 off): SMILES against the JAX package's f32 SMILES,
      gate >= 62/64;
   4. bf16 serving, the production setting, through the CLI's serving
@@ -50,9 +53,15 @@ per phase:
        and the serving pipeline decodes the fixture with them;
      - train_times: CUDA-event times per stage of one step, img/s of
        the fit loop, peak memory, a torch.profiler operator table;
+     - bn_act_step: one train_step at batch 64 from the snapshot through
+       bn_act's kernels and through bn_act_plain, same batch and generator
+       seed: in f32 (TF32 off) losses per term 1e-3 and the gradient tree
+       1e-2 relative L2; in bf16 within the floor the run measures (the
+       plain step against itself on the reversed batch);
   7. device_guard (run right after the build): every kernel wrapper on
      the last visible GPU while GPU 0 is current, bit-equal to its plain
-     version (on a one-GPU machine it says so: "gpus": 1);
+     version, bn_act within its tolerances (on a one-GPU machine it says
+     so: "gpus": 1);
   8. ddp_train: two ranks of data-parallel training (NCCL on two GPUs, or
      both ranks on the one card over gloo, which is no speed figure), full
      width at 512²: the first f32 step at global batch 16 against one
@@ -108,13 +117,16 @@ per phase:
      in f32 (TF32 off) on fixture rows 0-15 against the JAX package's
      counts (assets/test_acc_step43100.npz);
  15. bench: `python -m abcnet_tpu_torch bench` (sparse, then its train
-     steps at the default --train-batch, 64) and `bench --dense
-     --skip-train` through the CLI's main(), each record printed, then
-     the bench's train steps alone (paths `bench_sparse`, `bench_dense`,
-     `bench_train`); gates: exit 0 and no error, the rates finite and
-     > 0, implied TFLOP/s <= the H100's 989, one unpack and one NMS
-     launch per call of the serving program and one noise launch per
-     train step, the default snapshot's weights in the records, and the
+     steps at the default --train-batch, 128, the JAX bench's) and `bench
+     --dense --skip-train` through the CLI's main(), each record printed,
+     then the bench's train steps alone at 128 and at 64 (paths
+     `bench_sparse`, `bench_dense`, `bench_train`, `bench_train_64`);
+     gates: exit 0 and no error, the rates finite and > 0, implied
+     TFLOP/s <= the H100's 989, one unpack and one NMS launch per call of
+     the serving program, one noise launch and four bn_act launches a
+     BatchNorm per train step, the train steps' peak memory <= 64 GiB at
+     128 and <= 30 GiB at 64, the default snapshot's weights in the
+     records, and the
      bench's program on the clean-carry batch of buffer 0 bit-equal to
      make_infer_pipeline on its images;
  16. eval_suite, the README's four evaluation entry points through their
@@ -150,19 +162,18 @@ per phase:
      (64-row engine B pool; the float16 snapshot of the weights it trained
      serves their SMILES) and train.finetune_hard (mined set against the
      phase's own count of misses, the cache read again) at batch 128 with
-     the remat set for about 40 s each, peak memory and step ms, gated
+     the plain step for about 40 s each, peak memory and step ms, gated
      against the snapshot's numbers less 0.05;
  18. the card line of nvidia-smi, then the kernels line, then the result.
 
 Every new path is driven with the kernels' launch counts set to 0 just
 before it and read just after (`launches_by_path` of the kernels line).
-`--phases a,b` runs the environment phase and the named phases only (for
-iterating on the card); with no arguments every phase runs but
-`bench_probe` and `remat_probe`, which run only when named: the JAX
-bench's train batch 128 in a process of its own, the reading that chose
-bench's --train-batch default; and the fine-tunes' batch 128 under each
-candidate remat set in a process of its own, the reading that chose
-train/recipe.py:FT_REMAT_BLOCKS.
+`--phases a,b` runs the environment phase, bf16 serving and the named
+phases only (for iterating on the card; `kernels` names the kernels
+against their plain versions); with no arguments every phase runs but
+`remat_probe`, which runs only when named: the fine-tunes' batch 128
+plain and under each candidate remat set, each in a process of its own,
+the reading behind train/recipe.py:FT_REMAT_BLOCKS.
 
 Exits non-zero on any failed phase, and without a result when there is
 no CUDA device or no abcnet_tpu_torch package beside the script.
@@ -196,6 +207,50 @@ INT32_LANES_PER_SM_CLOCK = 64
 #   8 pixels x (2 compares + 2 logic operations)
 #   8 pixels x 1 to select and pack the output value
 NOISE_OPS_PER_BYTE = 8 * 4 * 4 + (1 + 4) + (4 + 7) + 18 + 8 * 4 + 8
+# bn_act (ops/bn_act.py, csrc/bn_act.cu) against bn_act_plain on the card
+# at the shapes the production step gives it at batch 64: inc1, down5, a
+# head's OutConv, the fused head bank; bf16 and f32, each activation,
+# forward and backward. Both sides compute in f32 and round alike; the
+# order of the sums differs, and so do the statistics in their last bits.
+#   * batch mean within 1e-5 of the channel's root mean square, biased
+#     variance 1e-5 relative (both sides are also read against float64);
+#   * bf16: y within one bf16 ulp of the plain value (with a floor of 1e-6
+#     of the tensor's largest value: near 0 the two f32 pre-activations'
+#     last bits exceed a bf16 ulp, and a relu may cut one and pass the
+#     other); dx 1e-2 relative L2;
+#   * f32: y within 1e-6 of the tensor's largest value; dx 1e-4
+#     relative L2 where the two sides' activation masks agree,
+#     and the masks may differ only at ties, |pre| <= 1e-5 of the largest
+#     (a flipped element changes dx by its whole dy, so flips at the
+#     1e-7 level would alone give a relative L2 near 3e-4);
+#   * dgamma and dbeta 1e-3 relative L2.
+BN_EPS = 1e-5
+BN_ACT_SHAPES = {"inc1": (BATCH, 16, 512, 512),
+                 "down5": (BATCH, 512, 16, 16),
+                 "head": (BATCH, 128, 128, 128),
+                 "head_bank": (BATCH, 1024, 128, 128)}
+BN_STAT_REL, BN_Y_REL, BN_DPARAM_REL, BN_TIE_REL = 1e-5, 1e-6, 1e-3, 1e-5
+BN_DX_REL = {"bfloat16": 1e-2, "float32": 1e-4}
+# The least f32 operations an element of bn_act's forward and backward:
+# the statistics 3 (subtract, multiply-add, add), the apply 3 (subtract,
+# multiply-add, activation), the backward sums 7 (the pre-activation 2,
+# the mask 1, xhat 2, two accumulations), the backward apply 6 (the
+# pre-activation 2, the mask 1, xhat 1, two multiply-adds).
+BN_ACT_OPS_PER_ELEMENT = 3 + 3 + 7 + 6
+# bn_act_step: one train_step at batch 64 from the snapshot through the
+# kernels and through bn_act_plain, same batch and generator seed. f32
+# (TF32 off): losses per term 1e-3 relative, the gradient tree 1e-2
+# relative L2. bf16 cannot be held to those: every bf16 BatchNorm output
+# rounds its f32 value, and a last-bit difference in the statistics flips
+# some roundings, which the next layers carry on until each activation
+# differs by about one bf16 rounding. The plain step against itself on the
+# batch in reversed row order (the same math, the sums in another order)
+# differed by 2.6e-3 in its largest loss term and 3.6e-2 in the gradient
+# tree on an H100 (PERF.md §6). The bf16 comparison is held to that
+# floor, measured again in each run: its largest term within 3x the
+# floor's, its tree within 2x.
+BN_STEP_LOSS_REL, BN_STEP_GRAD_REL = 1e-3, 1e-2
+BN_STEP_FLOOR_LOSS, BN_STEP_FLOOR_GRAD = 3.0, 2.0
 TRAIN_STEPS = 30                  # steps of the train_bf16 phase
 TRAIN_LOSS_FRACTION = 0.5         # gate: last total < this x first total
 EVAL_REL_TOL = 1e-3               # train_f32: per loss term against JAX
@@ -256,12 +311,14 @@ TESTACC_ABS, TESTACC_REL = 2, 0.01
 MULTIPROC_RANKS = 2
 MULTIPROC_POOL = 2
 MOVED_STAT = "down4.double_conv.bn1.running_mean"
-# bench: the port's --train-batch default, and the JAX bench's
-# (bench.py:62), which `--phases bench_probe` probes on the card in a
-# process of its own (it ran out of memory, so the port's default is
-# BATCH).
-BENCH_TRAIN_BATCH = BATCH
+# bench: the port's --train-batch default is the JAX bench's (bench.py:62).
+# The bench's plain train steps are gated on their peak memory at 128 and
+# at BATCH: under the 64.19 GiB that the fine-tunes' remat-heads step
+# took at 128 (PERF.md §5), and under 30 GiB at 64 (44.25 GiB before the
+# train-mode BatchNorm kept only the bf16 conv output, ops/bn_act.py).
 BENCH_JAX_TRAIN_BATCH = 128
+BENCH_TRAIN_BATCH = BENCH_JAX_TRAIN_BATCH
+BENCH_PEAK_GIB = {BENCH_JAX_TRAIN_BATCH: 64.0, BATCH: 30.0}
 # eval_suite: the README's four evaluation entry points through main().
 # decode_ceiling at the JAX script's defaults (150 a mode from seed 1000,
 # production targets): the TPU made 150/150 in both modes
@@ -291,8 +348,8 @@ EVAL_NEAR_TIE = 8 / 128
 # decodes 3.
 E2E_ARGS = ("64", "75")
 # recipe: the fine-tunes' batch (scripts/finetune_hard.py:43,
-# finetune_robust.py:40), which the plain step does not fit, and the remat
-# sets `--phases remat_probe` tries there: the JAX module's candidates, the
+# finetune_robust.py:40), and the remat sets `--phases remat_probe` tries
+# there beside the plain step: the JAX module's candidates, the
 # 512² and 256² low-channel levels (abcnet_tpu/models/unet.py:144-151),
 # then the heads, then every block and the heads.
 FT_BATCH = 128
@@ -557,6 +614,155 @@ def check_noise(torch, bit_sets, dev):
     return cases, err
 
 
+def bn_act_inputs(torch, shape, dtype, gen, dev="cuda"):
+    """(x, dy, weight, bias) of one bn_act case on `dev`: x with a spread
+    and an offset of its own in each channel, in `dtype`, x and dy
+    channels_last (the layout of the port's activations)."""
+    c = shape[1]
+    fmt = torch.channels_last
+    off = torch.rand(c, device=dev, generator=gen) * 4 - 2
+    spread = torch.rand(c, device=dev, generator=gen) * 2.5 + 0.5
+    x = torch.randn(shape, device=dev, generator=gen)
+    x = x.mul_(spread[:, None, None]).add_(off[:, None, None]).to(
+        dtype, memory_format=fmt)
+    dy = torch.randn(shape, device=dev, generator=gen).to(
+        dtype, memory_format=fmt)
+    weight = torch.rand(c, device=dev, generator=gen) + 0.5
+    bias = torch.rand(c, device=dev, generator=gen) - 0.5
+    return x, dy, weight, bias
+
+
+def bn_act_grads(torch, fn, x, dy, weight, bias, act):
+    """(y, mean, var, dx, dweight, dbias) of fn = bn_act or
+    bn_act_plain."""
+    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, weight, bias))
+    y, mean, var = fn(xg, wg, bg, BN_EPS, act)
+    dx, dw, db = torch.autograd.grad(y, (xg, wg, bg), dy)
+    return y.detach(), mean, var, dx, dw, db
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def bn_act_stats64(torch, x):
+    """Per-channel mean and biased variance of NCHW x in float64, a block
+    of channels at a time."""
+    parts = [torch.var_mean(x[:, c:c + 64].double(), dim=(0, 2, 3),
+                            correction=0) for c in range(0, x.shape[1], 64)]
+    return (torch.cat([m for _, m in parts]),
+            torch.cat([v for v, _ in parts]))
+
+
+def bn_act_masks(torch, x, w, b):
+    """(where the kernels' and the plain version's pre-activations agree
+    in sign, the number of elements where they do not, the largest |pre|
+    among those over the largest |pre|): the "none" outputs of both, in
+    f32."""
+    from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+
+    with torch.no_grad():
+        pre_k = bn_act(x, w, b, BN_EPS, "none")[0]
+        pre_p = bn_act_plain(x, w, b, BN_EPS, "none")[0]
+        agree = (pre_k > 0) == (pre_p > 0)
+        del pre_k
+        top = float(pre_p.abs().max())
+        tie = float(pre_p.abs().masked_fill_(agree, 0).max()) / top
+    return agree, int((~agree).sum()), tie
+
+
+def compare_bn_act(torch, got, want, dtype, act, stats64, masks=None):
+    """The errors of the kernels' (y, mean, var, dx, dw, db) against the
+    plain version's, and whether each is within its tolerance (see
+    BN_EPS). `masks`: bn_act_masks of x, for f32."""
+    y, mean, var, dx, dw, db = got
+    yp, mp, vp, dxp, dwp, dbp = want
+    rms = (mp.square() + vp).sqrt()
+    mean_err = float(((mean - mp).abs() / rms).max())
+    var_err = float(((var - vp).abs() / vp).max())
+    m64, v64 = stats64
+    res = {"mean_rel": mean_err, "var_rel": var_err,
+           "f64_var_rel": {
+               "kernels": float(((var.double() - v64).abs() / v64).max()),
+               "plain": float(((vp.double() - v64).abs() / v64).max())},
+           "f64_mean_rel": {
+               "kernels": float(((mean.double() - m64).abs() / rms).max()),
+               "plain": float(((mp.double() - m64).abs() / rms).max())}}
+    ypf = yp.float()
+    diff = (y.float() - ypf).abs()
+    top = float(ypf.abs().max())
+    res.update(y_max_abs_err=float(diff.max()), y_max_abs=top)
+    name = str(dtype)[6:]
+    ties_ok = True
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(ypf)
+        ulp = torch.ldexp(torch.ones_like(ypf), e - 8).masked_fill_(
+            ypf == 0, 0.0)
+        del e
+        y_ok = bool((diff <= ulp.add_(BN_Y_REL * top)).all())
+        del ulp, diff, ypf
+        res["dx_rel_l2"] = _rel_l2(dx, dxp)
+    else:
+        y_ok = float(diff.max()) <= BN_Y_REL * top
+        del diff, ypf
+        agree, flips, tie = masks
+        if act == "none":
+            res["dx_rel_l2"] = _rel_l2(dx, dxp)
+        else:
+            res["dx_rel_l2"] = float(
+                torch.where(agree, dx - dxp, 0.0).norm()
+                / torch.where(agree, dxp, 0.0).norm())
+            res["dx_rel_l2_all"] = _rel_l2(dx, dxp)
+            res.update(mask_flips=flips, flip_max_pre_rel=tie)
+            ties_ok = tie <= BN_TIE_REL
+    res.update(y_within=y_ok, masks_differ_only_at_ties=ties_ok,
+               dweight_rel_l2=_rel_l2(dw, dwp), dbias_rel_l2=_rel_l2(db, dbp))
+    res["ok"] = (mean_err <= BN_STAT_REL and var_err <= BN_STAT_REL and y_ok
+                 and ties_ok
+                 and res["dx_rel_l2"] <= BN_DX_REL[name]
+                 and res["dweight_rel_l2"] <= BN_DPARAM_REL
+                 and res["dbias_rel_l2"] <= BN_DPARAM_REL)
+    return res
+
+
+def check_bn_act(torch):
+    """bn_act's kernels against bn_act_plain at BN_ACT_SHAPES, bf16 and
+    f32, channels_last (the layout of the port's activations), each
+    activation, forward and backward; y and dx channels_last. Returns
+    (cases, the largest |y - y_plain|)."""
+    from abcnet_tpu_torch.ops.bn_act import ACTS, bn_act, bn_act_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases, err = [], 0.0
+    runs = [(name, shape, dtype) for name, shape in BN_ACT_SHAPES.items()
+            for dtype in (torch.bfloat16, torch.float32)]
+    for name, shape, dtype in runs:
+        x, dy, w, b = bn_act_inputs(torch, shape, dtype, gen)
+        stats64 = bn_act_stats64(torch, x)
+        masks = bn_act_masks(torch, x, w, b) \
+            if dtype == torch.float32 else None
+        for act in sorted(ACTS):
+            got = bn_act_grads(torch, bn_act, x, dy, w, b, act)
+            want = bn_act_grads(torch, bn_act_plain, x, dy, w, b, act)
+            res = compare_bn_act(torch, got, want, dtype, act, stats64,
+                                 masks)
+            res["channels_last"] = all(
+                t.stride() == x.stride() for t in (got[0], got[3]))
+            res["ok"] = res["ok"] and res["channels_last"]
+            del got, want
+            err = max(err, res["y_max_abs_err"])
+            cases.append({"case": name, "shape": list(shape),
+                          "dtype": str(dtype)[6:], "act": act, **res})
+        del x, dy, masks
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"bn_act differs from bn_act_plain: {bad[:4]}")
+    return cases, err
+
+
 def phase_kernels(torch, fixture):
     import numpy as np
 
@@ -611,12 +817,20 @@ def phase_kernels(torch, fixture):
                for c in nms_cases):
         raise AssertionError("nms_topk: an exhausted slot's index differs "
                              "from the plain version")
+    bn_cases, bn_err = check_bn_act(torch)
     emit("kernels_vs_plain", ok=True, unpack_cases=unpack_cases,
          unpack_max_abs_err=unpack_err, noise_cases=noise_cases,
          noise_max_abs_err=noise_err, nms_cases=nms_cases,
-         nms_max_abs_err=nms_err)
+         nms_max_abs_err=nms_err, bn_act_cases=bn_cases,
+         bn_act_max_abs_err=bn_err,
+         bn_act_gate=f"mean and var {BN_STAT_REL} relative; bf16: y one "
+                     f"bf16 ulp + {BN_Y_REL} of max|y|; f32: y {BN_Y_REL} "
+                     "of max|y|, masks differ only at ties (|pre| <= "
+                     f"{BN_TIE_REL} of max); dx {BN_DX_REL} relative L2 "
+                     "(f32: where the masks agree); dweight, dbias "
+                     f"{BN_DPARAM_REL}")
     return {"unpack_bits": unpack_err, "unpack_noise": noise_err,
-            "nms_topk": nms_err}
+            "nms_topk": nms_err, "bn_act": bn_err}
 
 
 def serve(torch, fixture, dtype, images=None):
@@ -736,6 +950,59 @@ def stage_breakdown(torch, model, images_u8):
     return out, heatmaps
 
 
+def bn_act_row(torch, launches, errs):
+    """The kernels-line row of bn_act at the inc1 shape, bf16, relu: the
+    forward and backward through the kernels, through bn_act_plain, and
+    through the chain they replaced (.float() -> F.batch_norm -> relu ->
+    .to(bf16) and its autograd backward); the bound from the bytes the op
+    must move (read x, write y; read x and dy, write dx)."""
+    import torch.nn.functional as F
+
+    from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+
+    shape = BN_ACT_SHAPES["inc1"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x, dy, w, b = bn_act_inputs(torch, shape, torch.bfloat16, gen)
+    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+
+    def through(fn):
+        return lambda: torch.autograd.grad(
+            fn(xg, wg, bg, BN_EPS, "relu")[0], (xg, wg, bg), dy)
+
+    def chain(xx, ww, bb, eps, act):
+        c = xx.shape[1]
+        zeros = torch.zeros(c, device=xx.device)
+        out = F.batch_norm(xx.float(), zeros, torch.zeros_like(zeros), ww, bb,
+                           True, 1.0, eps)
+        return (F.relu(out).to(xx.dtype),)
+
+    with torch.no_grad():
+        forward_ms = device_ms(torch, lambda: bn_act(x, w, b, BN_EPS,
+                                                     "relu"))
+    ms = device_ms(torch, through(bn_act))
+    plain_ms = device_ms(torch, through(bn_act_plain))
+    replaced_ms = device_ms(torch, through(chain))
+    nbytes = x.numel() * x.element_size() * (2 + 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = x.numel() * BN_ACT_OPS_PER_ELEMENT / F32_OPS_PER_S * 1e3
+    del x, dy, xg
+    torch.cuda.empty_cache()
+    return {
+        "name": "bn_act", "route": "cuda",
+        "source": "abcnet_tpu_torch/csrc/bn_act.cu",
+        "replaces": "abcnet_tpu/models/unet.py:41-48 (the XLA fusion of "
+                    "BatchNorm -> relu -> astype; no Pallas counterpart)",
+        "launches": launches["bn_act"], "max_abs_err": errs["bn_act"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "operations_type": "f32",
+        "shape": f"{shape} bf16, relu: forward and backward (4 kernels); "
+                 "launches counted over the train_bf16 phase",
+        "replaced_ms": replaced_ms, "forward_ms": forward_ms,
+        "library": "none: no single PyTorch call normalizes with batch "
+                   "statistics, activates and casts"}
+
+
 def phase_times(torch, fixture, model, run, launches, errs):
     import numpy as np
 
@@ -817,6 +1084,7 @@ def phase_times(torch, fixture, model, run, launches, errs):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "operations_type": ops_type, "shape": shape})
+    kernels.append(bn_act_row(torch, launches, errs))
 
     dense = (torch.randn(BATCH, 128, 128, device="cuda",
                          generator=torch.Generator(device="cuda")
@@ -991,9 +1259,6 @@ def phase_train_bf16(torch, fixture, samples):
     from abcnet_tpu_torch.data import pipeline
     from abcnet_tpu_torch.infer.decode import make_infer_pipeline
     from abcnet_tpu_torch.models.weights import load_snapshot, save_snapshot
-    from abcnet_tpu_torch.ops.noise import unpack_noise
-    from abcnet_tpu_torch.ops.peaks import nms_topk
-    from abcnet_tpu_torch.ops.unpack import unpack_bits
     from abcnet_tpu_torch.train import trainer
 
     cfg = trainer.TrainConfig(batch_size=BATCH, epochs=TRAIN_STEPS,
@@ -1024,8 +1289,7 @@ def phase_train_bf16(torch, fixture, samples):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (unpack_noise, unpack_bits, nms_topk):
-        fn.launches = 0
+    reset_launches()
     trainer.train_step, trainer.train_metrics_step = \
         recording_step, counting_metrics
     t0 = time.perf_counter()
@@ -1035,9 +1299,7 @@ def phase_train_bf16(torch, fixture, samples):
         trainer.train_step, trainer.train_metrics_step = step_fn, metrics_fn
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"unpack_noise": unpack_noise.launches,
-                "unpack_bits": unpack_bits.launches,
-                "nms_topk": nms_topk.launches}
+    launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     total_list = [float(t) for t in totals]
@@ -1048,7 +1310,9 @@ def phase_train_bf16(torch, fixture, samples):
     fell = total_list[-1] < TRAIN_LOSS_FRACTION * total_list[0]
     ok = (finite and bn_moved and fell and state.step == TRAIN_STEPS
           and launches["unpack_noise"] == noisy[0]
-          and launches["unpack_bits"] == 1 and launches["nms_topk"] == 0)
+          and launches["unpack_bits"] == 1 and launches["nms_topk"] == 0
+          and launches["bn_act"] == train_bn_launches(state.model,
+                                                      TRAIN_STEPS))
 
     # Weights through the npz snapshot layout into the serving pipeline.
     with tempfile.TemporaryDirectory() as tmp:
@@ -1066,7 +1330,8 @@ def phase_train_bf16(torch, fixture, samples):
          total_first=total_list[0], total_last=total_list[-1],
          totals=total_list, gate=f"finite; last < {TRAIN_LOSS_FRACTION} x "
          "first; BN running stats moved; unpack_noise launches == noisy "
-         "forward passes; unpack_bits launches == 1 (the evaluation)",
+         "forward passes; unpack_bits launches == 1 (the evaluation); "
+         "bn_act launches == 4 a BatchNorm a train step",
          all_finite=finite, bn_running_stats_moved=bn_moved,
          noisy_forward_passes=noisy[0], launches=launches,
          last_terms={k: float(v) for k, v in terms[-1].items()},
@@ -1186,33 +1451,171 @@ def phase_train_times(torch, samples, state, cfg, kernels):
               "train_steps on one resident batch")
 
 
+def _bn_step(torch, host, path, dtype=None, drop=True, amount=0.2):
+    """One train_step at batch 64 from the snapshot, its BatchNorms through
+    bn_act's kernels or through bn_act_plain (the name models.unet calls
+    patched): (total, losses, gradients, bn_act launches, peak GiB)."""
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.models import unet
+    from abcnet_tpu_torch.models.weights import load_snapshot
+    from abcnet_tpu_torch.ops import bn_act
+    from abcnet_tpu_torch.train import trainer
+
+    dtype = dtype or torch.bfloat16
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", dtype)
+    state = trainer.create_state(trainer.TrainConfig(
+        batch_size=BATCH, dtype=str(dtype)[6:]), model)
+    batch = trainer.to_device(host, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    drop_was = unet.OutConv.DROP
+    unet.OutConv.DROP = drop_was if drop else 0.0
+    if path == "plain":
+        unet.bn_act = bn_act.bn_act_plain
+    reset_launches()
+    try:
+        _, total, losses, _ = trainer.train_step(state, batch, rng=0,
+                                                 amount=amount,
+                                                 with_metrics=False)
+        torch.cuda.synchronize()
+    finally:
+        unet.bn_act = bn_act.bn_act
+        unet.OutConv.DROP = drop_was
+    run = {"total": float(total),
+           "losses": {k: float(v) for k, v in losses.items()},
+           "grads": {k: p.grad.detach().float().clone()
+                     for k, p in model.named_parameters()
+                     if p.grad is not None},
+           "launches": read_launches(),
+           "expect_bn": train_bn_launches(model, 1) if path == "kernels"
+           else 0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _bn_step_diff(a, b):
+    """(relative difference of each loss term and of the total, relative
+    L2 of the gradient tree) of run a against run b."""
+    rel = {k: abs(v - b["losses"][k]) / max(abs(b["losses"][k]), 1e-6)
+           for k, v in a["losses"].items()}
+    rel["total"] = abs(a["total"] - b["total"]) / max(abs(b["total"]), 1e-6)
+    num = sum(float((a["grads"][k] - g).square().sum())
+              for k, g in b["grads"].items())
+    den = sum(float(g.square().sum()) for g in b["grads"].values())
+    return rel, (num / den) ** 0.5
+
+
+def phase_bn_act_step(torch, samples):
+    """One train_step at batch 64 from the snapshot through bn_act's
+    kernels against the same step through bn_act_plain, same batch and
+    generator seed: in f32 (TF32 off), held to BN_STEP_LOSS_REL and
+    BN_STEP_GRAD_REL; in bf16, held to the floor the same run measures
+    (the plain step against itself on the batch in reversed row order,
+    noise and dropout off: the same math, the sums in another order)."""
+    import random
+
+    from abcnet_tpu_torch.data import pipeline
+
+    rng = random.Random(3)
+    exs = [pipeline.sample_to_example(s, rng, train=True)
+           for s in samples[:BATCH]]
+    host, host_rev = pipeline.collate(exs), pipeline.collate(exs[::-1])
+    bf16 = {path: _bn_step(torch, host, path) for path in ("kernels",
+                                                           "plain")}
+    floor = [_bn_step(torch, h, "plain", drop=False, amount=0.0)
+             for h in (host, host_rev)]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = {path: _bn_step(torch, host, path, torch.float32)
+               for path in ("kernels", "plain")}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    f32_loss, f32_tree = _bn_step_diff(f32["kernels"], f32["plain"])
+    bf_loss, bf_tree = _bn_step_diff(bf16["kernels"], bf16["plain"])
+    fl_loss, fl_tree = _bn_step_diff(floor[1], floor[0])
+    runs = [*bf16.values(), *floor, *f32.values()]
+    launches_ok = all(r["launches"]["bn_act"] == r["expect_bn"]
+                      for r in runs)
+    gates = {
+        "f32_losses": max(f32_loss.values()) <= BN_STEP_LOSS_REL,
+        "f32_grad_tree": f32_tree <= BN_STEP_GRAD_REL,
+        "bf16_losses_within_floor": max(bf_loss.values())
+        <= BN_STEP_FLOOR_LOSS * max(fl_loss.values()),
+        "bf16_grad_tree_within_floor": bf_tree
+        <= BN_STEP_FLOOR_GRAD * fl_tree,
+        "bn_act_launches": launches_ok,
+    }
+    ok = all(gates.values())
+    emit("bn_act_step", ok=ok, batch=BATCH, gates=gates,
+         f32={"loss_rel_err": f32_loss, "grad_tree_rel_l2": f32_tree},
+         bf16={"loss_rel_err": bf_loss, "grad_tree_rel_l2": bf_tree,
+               "totals": {k: v["total"] for k, v in bf16.items()},
+               "peak_gib": {k: v["peak_gib"] for k, v in bf16.items()}},
+         bf16_floor={"loss_rel_err": fl_loss, "grad_tree_rel_l2": fl_tree},
+         bn_act_launches={"bf16": {k: v["launches"]["bn_act"]
+                                   for k, v in bf16.items()},
+                          "f32": {k: v["launches"]["bn_act"]
+                                  for k, v in f32.items()}},
+         gate=f"f32 (TF32 off): losses <= {BN_STEP_LOSS_REL} relative per "
+              f"term, gradient tree <= {BN_STEP_GRAD_REL} relative L2; "
+              f"bf16: the largest term <= {BN_STEP_FLOOR_LOSS} x and the "
+              f"tree <= {BN_STEP_FLOOR_GRAD} x the floor (the plain step "
+              "on the reversed batch, noise and dropout off); 4 bn_act "
+              "launches a BatchNorm on the kernel path, none on the plain")
+    if not ok:
+        raise AssertionError("the train step through bn_act's kernels "
+                             "differs from the plain one")
+    return dict(bf16["kernels"]["launches"])
+
+
 # ---------------------------------------------------------------------------
 # Slice 4: device guard, data parallel, mesh serving, variants, int8
 # ---------------------------------------------------------------------------
 
 def reset_launches():
+    from abcnet_tpu_torch.ops import bn_act
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.unpack import unpack_bits
     for fn in (unpack_bits, unpack_noise, nms_topk):
         fn.launches = 0
+    bn_act.reset_launches()
 
 
 def read_launches():
+    """Launches by kernel; bn_act's are those of its four entry points
+    (statistics, apply, backward sums, backward apply) together."""
+    from abcnet_tpu_torch.ops import bn_act
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.unpack import unpack_bits
     return {"unpack_bits": unpack_bits.launches,
             "unpack_noise": unpack_noise.launches,
-            "nms_topk": nms_topk.launches}
+            "nms_topk": nms_topk.launches, "bn_act": bn_act.launches()}
+
+
+def train_bn_launches(model, steps):
+    """bn_act launches of `steps` train steps of `model`: four a
+    BatchNorm a step (the statistics and the apply in the forward, the
+    sums and the apply in the backward)."""
+    from abcnet_tpu_torch.models.unet import BatchNorm
+    return 4 * steps * sum(isinstance(m, BatchNorm) for m in model.modules())
 
 
 def phase_device_guard(torch):
     """Every kernel wrapper on the last visible GPU while GPU 0 is the
-    current device, bit-equal to its plain version there."""
+    current device, bit-equal to its plain version there (bn_act within
+    the kernels phase's tolerances)."""
     import numpy as np
 
     from abcnet_tpu_torch.data.pipeline import draw_noise_rates
+    from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
     from abcnet_tpu_torch.ops.noise import (int32_probe, unpack_noise,
                                             unpack_noise_plain)
     from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
@@ -1249,6 +1652,18 @@ def phase_device_guard(torch):
     null_launch(BATCH, 128, 128, 160, maps=2, device=dev)
     probe = torch.empty(SMS * 256, dtype=torch.int32, device=dev)
     int32_probe(probe, 4)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for dt in (torch.bfloat16, torch.float32):
+        x, dy, w, b = bn_act_inputs(torch, (8, 32, 64, 64), dt, gen, dev)
+        got = bn_act_grads(torch, bn_act, x, dy, w, b, "relu")
+        res = compare_bn_act(
+            torch, got, bn_act_grads(torch, bn_act_plain, x, dy, w, b,
+                                     "relu"), dt, "relu",
+            bn_act_stats64(torch, x),
+            bn_act_masks(torch, x, w, b) if dt == torch.float32 else None)
+        if not res["ok"] or any(t.device != dev for t in got):
+            raise AssertionError(f"bn_act on {dev} differs: {res}")
+        checked.append(f"bn_act/{str(dt)[6:]}")
     torch.cuda.synchronize(dev)
     checked += ["null_launch", "int32_probe"]
     if torch.cuda.current_device() != 0:
@@ -1691,7 +2106,7 @@ def phase_multiproc_serving(torch, fixture, bf16_model, bf16_preds):
         n_batches = int(got["batches"])
         equal.append(same)
         launches_ok.append(n_batches == 1 and launches == {
-            "unpack_bits": 1, "unpack_noise": 0, "nms_topk": 1})
+            "unpack_bits": 1, "unpack_noise": 0, "nms_topk": 1, "bn_act": 0})
         per_rank.append({"device": str(got["device"]),
                          "rows": int(got["rows"]), "batches": n_batches,
                          "peaks_equal_blockwise": same,
@@ -2400,9 +2815,11 @@ def serve_and_score_checkpoint(torch, ds, ck, tmp, module, times, by_path):
             for a, b in zip(counted[0][g], want_counts[g]))
     n_acc = len(examples) // batch_acc
     launches_ok = (by_path["img2smiles_ckpt"] == {
-        "unpack_bits": n_serve, "unpack_noise": 0, "nms_topk": n_serve}
+        "unpack_bits": n_serve, "unpack_noise": 0, "nms_topk": n_serve,
+        "bn_act": 0}
         and by_path["test_acc_ckpt"] == {
-            "unpack_bits": n_acc, "unpack_noise": 0, "nms_topk": 0})
+            "unpack_bits": n_acc, "unpack_noise": 0, "nms_topk": 0,
+            "bn_act": 0})
     return {"ok": peaks_equal and counts_equal and launches_ok,
             "weights_line": first, "printed_step": printed,
             "serving_batches": n_serve, "peaks_equal_in_memory": peaks_equal,
@@ -2578,31 +2995,6 @@ def phase_cli_loop(torch):
     return by_path
 
 
-def bench_probe_worker(out_path, train_batch):
-    """The bench's train steps at `train_batch` in a process of their own
-    (phase_bench): the step ms and peak memory, or the out-of-memory and
-    the peak reached before it."""
-    import torch
-
-    sys.path.insert(0, HERE)
-    from abcnet_tpu_torch import bench
-
-    res = {"train_batch": int(train_batch)}
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        step_s, peak = bench.train_bench(int(train_batch), "cuda",
-                                         torch.bfloat16)
-        res.update(fits=True, train_step_ms=step_s * 1e3, peak_gib=peak)
-    except torch.cuda.OutOfMemoryError as e:
-        res.update(fits=False,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   error=str(e).splitlines()[0][:400])
-    res["card_gib"] = torch.cuda.get_device_properties(0).total_memory \
-        / 2 ** 30
-    with open(out_path, "w") as f:
-        json.dump(res, f)
-
-
 def _bench_cli(argv):
     """`python -m abcnet_tpu_torch bench ARGV` through the CLI's main() in
     this process: (exit code, record, seconds)."""
@@ -2610,34 +3002,6 @@ def _bench_cli(argv):
 
     code, text, seconds = _entry(cli_main, ["bench", *argv])
     return code or 0, json.loads(text.strip().splitlines()[-1]), seconds
-
-
-def phase_bench_probe(torch):
-    """The JAX bench's train batch (BENCH_JAX_TRAIN_BATCH) probed in a
-    process of its own, so that an out-of-memory spoils nothing after it:
-    the step ms and peak memory, or the out-of-memory and the peak before
-    it. Runs only when named (`--phases bench_probe`); its one reading
-    chose bench's --train-batch default (BENCH_TRAIN_BATCH), whose help
-    text carries it."""
-    import tempfile
-
-    torch.cuda.empty_cache()
-    parent_reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "probe.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--bench-probe", out,
-             str(BENCH_JAX_TRAIN_BATCH)], capture_output=True, text=True,
-            timeout=600)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0 or not os.path.exists(out):
-            raise RuntimeError(f"the train batch {BENCH_JAX_TRAIN_BATCH} "
-                               f"probe failed: {proc.stderr[-3000:]}")
-        with open(out) as f:
-            probe = json.load(f)
-    emit("bench_probe", probe=probe, seconds=seconds,
-         parent_reserved_gib=parent_reserved_gib)
 
 
 def remat_probe_worker(out_path, batch, blocks):
@@ -2691,17 +3055,19 @@ def remat_probe_worker(out_path, batch, blocks):
 
 
 def phase_remat_probe(torch):
-    """The batch-128 fine-tunes' remat set, chosen on the card: each
-    candidate of REMAT_CANDIDATES (and the plain step at BATCH for
-    reference) in a process of its own, so that an out-of-memory spoils
-    nothing after it. Runs only when named (`--phases remat_probe`); its
-    one reading chose train/recipe.py:FT_REMAT_BLOCKS."""
+    """The batch-128 fine-tunes' remat sets on the card: the plain step at
+    BATCH and at FT_BATCH, then each candidate of REMAT_CANDIDATES at
+    FT_BATCH, each in a process of its own, so that an out-of-memory
+    spoils nothing after it. Runs only when named (`--phases
+    remat_probe`); its reading chose train/recipe.py:FT_REMAT_BLOCKS (the
+    heads when the plain step did not fit, none since it does)."""
     import tempfile
 
     torch.cuda.empty_cache()
     rows = []
-    runs = [(BATCH, "")] + [(FT_BATCH, ",".join(c) if isinstance(c, tuple)
-                             else c) for c in REMAT_CANDIDATES]
+    runs = [(BATCH, ""), (FT_BATCH, "")] + [
+        (FT_BATCH, ",".join(c) if isinstance(c, tuple) else c)
+        for c in REMAT_CANDIDATES]
     with tempfile.TemporaryDirectory() as tmp:
         for i, (batch, blocks) in enumerate(runs):
             out = os.path.join(tmp, f"probe{i}.json")
@@ -2737,6 +3103,7 @@ def phase_bench(torch):
     from abcnet_tpu_torch.data.pipeline import pack_images
     from abcnet_tpu_torch.infer.decode import (make_infer_pipeline,
                                                sparse_heads)
+    from abcnet_tpu_torch.models import UNet
 
     times = {}
     calls = min(bench.WARMUP, bench.N_BUFFERS) + 3 * bench.ITERS + 3
@@ -2766,27 +3133,36 @@ def phase_bench(torch):
         if train:
             gates[mode]["train_batch_default"] = \
                 rec.get("train_batch") == BENCH_TRAIN_BATCH
+            gates[mode]["train_peak"] = (rec.get("train_peak_gib") or 1e9) \
+                <= BENCH_PEAK_GIB[BENCH_TRAIN_BATCH]
+            gates[mode]["bn_act_launches"] = \
+                n["bn_act"] == train_bn_launches(UNet(), bench.TRAIN_STEPS)
         by_path[f"bench_{mode}"] = dict(n)
         emit("bench_record", mode=mode, exit_code=code, record=rec,
              launches=n, serving_calls=calls)
 
     # The train steps alone, so that their path's counts are read apart
-    # from serving's.
-    torch.cuda.empty_cache()
-    reset_launches()
-    t0 = time.perf_counter()
-    step_s, peak = bench.train_bench(BENCH_TRAIN_BATCH, "cuda",
-                                     torch.bfloat16)
-    times["train"] = time.perf_counter() - t0
-    n = read_launches()
-    by_path["bench_train"] = dict(n)
-    gates["train"] = {
-        "launches": n["unpack_bits"] == n["nms_topk"] == 0
-        and n["unpack_noise"] == bench.TRAIN_STEPS,
-        "step_finite_positive": math.isfinite(step_s) and step_s > 0,
-    }
-    emit("bench_train", train_batch=BENCH_TRAIN_BATCH,
-         train_step_ms=step_s * 1e3, train_peak_gib=peak, launches=n)
+    # from serving's: at the default batch and at BATCH, each peak gated.
+    for train_batch, path in ((BENCH_TRAIN_BATCH, "bench_train"),
+                              (BATCH, f"bench_train_{BATCH}")):
+        torch.cuda.empty_cache()
+        reset_launches()
+        t0 = time.perf_counter()
+        step_s, peak = bench.train_bench(train_batch, "cuda",
+                                         torch.bfloat16)
+        times[path] = time.perf_counter() - t0
+        n = read_launches()
+        by_path[path] = dict(n)
+        gates[path] = {
+            "launches": n["unpack_bits"] == n["nms_topk"] == 0
+            and n["unpack_noise"] == bench.TRAIN_STEPS
+            and n["bn_act"] == train_bn_launches(UNet(), bench.TRAIN_STEPS),
+            "step_finite_positive": math.isfinite(step_s) and step_s > 0,
+            "peak": peak <= BENCH_PEAK_GIB[train_batch],
+        }
+        emit("bench_train", train_batch=train_batch,
+             train_step_ms=step_s * 1e3, train_peak_gib=peak,
+             peak_limit_gib=BENCH_PEAK_GIB[train_batch], launches=n)
 
     # The clean-carry batch of buffer 0 is the served program's answer.
     t0 = time.perf_counter()
@@ -2817,9 +3193,11 @@ def phase_bench(torch):
               "train_step_ips) finite and > 0; 0 < implied_tflops <= "
               f"{bench.H100_PEAK_TFLOPS}; one unpack and one NMS launch per "
               f"call of the serving program ({calls}), one noise launch per "
-              f"train step ({bench.TRAIN_STEPS}) in the sparse record and "
-              f"in the train steps alone; the default train batch "
-              f"{BENCH_TRAIN_BATCH}; the records' weights the default "
+              f"train step ({bench.TRAIN_STEPS}) and four bn_act launches "
+              f"a BatchNorm a train step in the sparse record and in the "
+              f"train steps alone; the default train batch "
+              f"{BENCH_TRAIN_BATCH}; train peaks <= {BENCH_PEAK_GIB} GiB "
+              f"by batch; the records' weights the default "
               "snapshot; the clean-carry peak dict of buffer 0 bit-equal "
               "to make_infer_pipeline on its images, sparse and dense")
     if not ok:
@@ -3179,6 +3557,7 @@ def _recipe_train_r5(torch, tmp, pool, fixture, by_path):
 
     from abcnet_tpu_torch.infer.assemble import assemble_batch
     from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models import UNet
     from abcnet_tpu_torch.models.weights import (f16_is_exact, load_snapshot,
                                                  load_weights, to_flax)
     from abcnet_tpu_torch.train import build_pool_r5 as bp
@@ -3251,7 +3630,8 @@ def _recipe_train_r5(torch, tmp, pool, fixture, by_path):
             for x in lines),
         "launches": n["unpack_noise"] == res.steps + res.metrics_steps
         and n["unpack_bits"] == eval_batches * len(res.evals)
-        and n["nms_topk"] == 0,
+        and n["nms_topk"] == 0
+        and n["bn_act"] == train_bn_launches(UNet(), res.steps),
     }
     dtypes = [str(z[k].dtype) for k in z.files if k.startswith("params/")]
     emit("recipe_train_r5", argv=argv, steps=res.steps,
@@ -3327,6 +3707,7 @@ def _recipe_finetune_common(torch, res, text, n, peak, out_dir, extra_unpack,
     """The gates both fine-tunes share."""
     import math
 
+    from abcnet_tpu_torch.models import UNet
     from abcnet_tpu_torch.train import build_pool_r5 as bp
     from abcnet_tpu_torch.train import recipe
 
@@ -3341,13 +3722,14 @@ def _recipe_finetune_common(torch, res, text, n, peak, out_dir, extra_unpack,
         "peak_under_the_card": peak < card,
         "launches": n["unpack_noise"] == res.steps + res.metrics_steps
         and n["unpack_bits"] == bp.EVAL_N // recipe.EVAL_BATCH
-        * len(res.evals) + extra_unpack and n["nms_topk"] == extra_nms,
+        * len(res.evals) + extra_unpack and n["nms_topk"] == extra_nms
+        and n["bn_act"] == train_bn_launches(UNet(), res.steps),
     }
 
 
 def _recipe_robust(torch, tmp, pool, fixture, ref, by_path):
     """finetune_robust for about RECIPE_FT_S from the committed snapshot,
-    with a 64-row engine-B pool, at batch 128 with the remat set; then the
+    with a 64-row engine-B pool, at batch 128 with the plain step; then the
     float16 snapshot of the weights it trained, serving the fixture."""
     import numpy as np
 
@@ -3475,7 +3857,7 @@ def phase_recipe(torch, fixture):
     `finetune_hard`): build_pool_r5 against the digest fixture, train_r5
     from a seeded init, then the committed snapshot's own EVAL and FINAL
     numbers on the eval split, finetune_robust and finetune_hard from it
-    at batch 128 with the remat set."""
+    at batch 128 with the plain step (recipe.FT_REMAT_BLOCKS empty)."""
     import tempfile
 
     from abcnet_tpu_torch.train import recipe
@@ -3531,9 +3913,6 @@ def main(argv):
     if argv[:1] == ["--multiproc-worker"]:
         multiproc_worker(*argv[1:3])
         return 0
-    if argv[:1] == ["--bench-probe"]:
-        bench_probe_worker(*argv[1:3])
-        return 0
     if argv[:1] == ["--remat-probe"]:
         remat_probe_worker(*argv[1:4])
         return 0
@@ -3573,9 +3952,10 @@ def main(argv):
         if want("device_guard"):
             phase = "device_guard"
             phase_device_guard(torch)
-        if only is None:
+        if want("kernels"):
             phase = "kernels_vs_plain"
             errs = phase_kernels(torch, fixture)
+        if only is None:
             phase = "serving_f32"
             phase_f32(torch, fixture)
         phase = "serving_bf16"
@@ -3588,6 +3968,7 @@ def main(argv):
             state, cfg, train_launches = phase_train_bf16(torch, fixture,
                                                           samples)
             launches["unpack_noise"] = train_launches["unpack_noise"]
+            launches["bn_act"] = train_launches["bn_act"]
             by_path["fit_bf16"] = dict(train_launches)
             phase = "times"
             kernels = phase_times(torch, fixture, model, run, launches, errs)
@@ -3595,6 +3976,9 @@ def main(argv):
             phase_train_times(torch, samples, state, cfg, kernels)
             del state
             torch.cuda.empty_cache()
+        if want("bn_act_step"):
+            phase = "bn_act_step"
+            by_path["bn_act_step"] = phase_bn_act_step(torch, samples)
         if want("mesh_serving"):
             phase = "mesh_serving"
             by_path["mesh_serving"] = phase_mesh_serving(torch, fixture,
@@ -3640,9 +4024,6 @@ def main(argv):
             phase = "recipe"
             torch.cuda.empty_cache()
             by_path.update(phase_recipe(torch, fixture))
-        if only is not None and "bench_probe" in only:
-            phase = "bench_probe"
-            phase_bench_probe(torch)
         if only is not None and "remat_probe" in only:
             phase = "remat_probe"
             phase_remat_probe(torch)

@@ -379,3 +379,152 @@ def test_degraded_sweep_launches_once_per_batch(cuda):
         for k in want:
             assert np.array_equal(want[k], r.first_peaks[k]), (name, k)
         assert r.report.decode_rate >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# bn_act (ops/bn_act.py, csrc/bn_act.cu): train-mode BatchNorm ->
+# activation -> cast, forward and backward. The kernels and the plain
+# version compute in f32 and round alike, but sum in another order, so
+# these are tolerances (chip_smoke.py's BN_EPS comment gives the reasons):
+# batch mean within 1e-5 of the channel's root mean square, variance 1e-5
+# relative; bf16: y within one bf16 ulp (plus 1e-6 of the largest |y|,
+# for values near 0), dx 1e-2 relative L2; f32: y within 1e-6 of the
+# largest |y|, dx 1e-4 relative L2 where the two activation masks agree,
+# the masks differing only where |pre| <= 1e-5 of the largest; dweight
+# and dbias 1e-3 relative L2.
+# ---------------------------------------------------------------------------
+
+def _bn_inputs(shape, dtype, device, seed=0, fmt=torch.channels_last):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    off = torch.rand(c, device=device, generator=gen) * 4 - 2
+    spread = torch.rand(c, device=device, generator=gen) * 2.5 + 0.5
+    x = torch.randn(shape, device=device, generator=gen)
+    x = x.mul_(spread[:, None, None]).add_(off[:, None, None]).to(
+        dtype, memory_format=fmt)
+    dy = torch.randn(shape, device=device, generator=gen).to(
+        dtype, memory_format=fmt)
+    w = torch.rand(c, device=device, generator=gen) + 0.5
+    b = torch.rand(c, device=device, generator=gen) - 0.5
+    return x, dy, w, b
+
+
+def _bn_run(fn, x, dy, w, b, act):
+    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+    y, mean, var = fn(xg, wg, bg, 1e-5, act)
+    dx, dw, db = torch.autograd.grad(y, (xg, wg, bg), dy)
+    return y.detach(), mean, var, dx, dw, db
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def _y_within_bf16(got, want):
+    want = want.float()
+    diff = (got.float() - want).abs()
+    floor = 1e-6 * float(want.abs().max())
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8).masked_fill_(want == 0,
+                                                                 0.0)
+    return bool((diff <= ulp + floor).all())
+
+
+def _assert_bn_close(got, want, x, w, b, act, dparam_scale=1.0):
+    from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+    y, mean, var, dx, dw, db = got
+    yp, mp, vp, dxp, dwp, dbp = want
+    assert float(((mean - mp).abs() / (mp.square() + vp).sqrt()).max()) \
+        <= 1e-5
+    assert float(((var - vp).abs() / vp).max()) <= 1e-5
+    assert y.dtype == dx.dtype == x.dtype
+    if x.dtype == torch.bfloat16:
+        assert _y_within_bf16(y, yp)
+        assert _rel_l2(dx, dxp) <= 1e-2
+    else:
+        assert float((y - yp).abs().max()) <= 1e-6 * float(yp.abs().max())
+        with torch.no_grad():
+            pre_k = bn_act(x, w, b, 1e-5, "none")[0]
+            pre_p = bn_act_plain(x, w, b, 1e-5, "none")[0]
+        agree = ((pre_k > 0) == (pre_p > 0)) | (act == "none")
+        ties = pre_p.abs().masked_fill(agree, 0).max()
+        assert float(ties) <= 1e-5 * float(pre_p.abs().max())
+        err = torch.where(agree, dx - dxp, 0.0).norm()
+        assert float(err / torch.where(agree, dxp, 0.0).norm()) <= 1e-4
+    assert _rel_l2(dw, dwp * dparam_scale) <= 1e-3
+    assert _rel_l2(db, dbp * dparam_scale) <= 1e-3
+
+
+LAYOUTS = {"channels_last": torch.channels_last,
+           "nchw": torch.contiguous_format}
+
+
+@pytest.mark.parametrize("shape", [(64, 512, 16, 16), (4, 16, 64, 64),
+                                   (3, 5, 7, 9), (2, 40, 1, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("fmt", sorted(LAYOUTS))
+def test_bn_act_kernels_match_plain(cuda, shape, dtype, act, fmt):
+    from abcnet_tpu_torch.ops import bn_act as ops
+    x, dy, w, b = _bn_inputs(shape, dtype, cuda, fmt=LAYOUTS[fmt])
+    before = [k.launches for k in ops.KERNELS]
+    got = _bn_run(ops.bn_act, x, dy, w, b, act)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(ops.KERNELS, before)] == \
+        [1, 1, 1, 1]
+    # y and dx are channels_last, whatever x's layout (another is copied)
+    assert all(t.is_contiguous(memory_format=torch.channels_last)
+               for t in (got[0], got[3]))
+    want = _bn_run(ops.bn_act_plain, x, dy, w, b, act)
+    _assert_bn_close(got, want, x, w, b, act)
+
+
+def test_bn_act_offsets_past_int32(cuda):
+    """129 x 1024 x 128² bf16 values, past 2^31 (the fused head bank at
+    batch 128 is 2^31): x and dy repeat a 3-image base 43 times, so the
+    statistics, y, dx and the per-image gradients equal the plain version
+    on the base, and every image past the 2^31 offset is held to it."""
+    from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+    base = (3, 1024, 128, 128)
+    xb, dyb, w, b = _bn_inputs(base, torch.bfloat16, cuda, seed=3)
+    cl = torch.channels_last
+    x = xb.repeat(43, 1, 1, 1).contiguous(memory_format=cl)
+    dy = dyb.repeat(43, 1, 1, 1).contiguous(memory_format=cl)
+    assert x.numel() > 2 ** 31
+    y, mean, var, dx, dw, db = _bn_run(bn_act, x, dy, w, b, "relu")
+    del x, dy
+    want = _bn_run(bn_act_plain, xb, dyb, w, b, "relu")
+    yv, dxv = y.unflatten(0, (43, 3)), dx.unflatten(0, (43, 3))
+    for i in (0, 21, 42):
+        _assert_bn_close((yv[i], mean, var, dxv[i], dw, db), want, xb, w, b,
+                         "relu", dparam_scale=43.0)
+    # every block of the repeat equals the first
+    assert torch.equal(yv, yv[:1].expand_as(yv))
+    assert torch.equal(dxv, dxv[:1].expand_as(dxv))
+
+
+def test_bn_act_launches_on_its_tensors_device(last_gpu):
+    from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+    x, dy, w, b = _bn_inputs((4, 32, 32, 32), torch.bfloat16, last_gpu)
+    got = _bn_run(bn_act, x, dy, w, b, "leaky_relu")
+    assert all(t.device == last_gpu for t in got)
+    _assert_bn_close(got, _bn_run(bn_act_plain, x, dy, w, b, "leaky_relu"),
+                     x, w, b, "leaky_relu")
+    torch.cuda.synchronize(last_gpu)
+    assert torch.cuda.current_device() == 0
+
+
+def test_bn_act_kernels_reject_what_they_do_not_take(cuda):
+    from abcnet_tpu_torch.ops import bn_act as ops
+    x = torch.zeros(2, 4, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.stats(x, 1e-5)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(TypeError):
+        ops.stats(x.half(), 1e-5)
+    st = ops.stats(x + 1, 1e-5)
+    v = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="per-channel"):
+        ops.apply(x, st, v.double(), v, "relu")
