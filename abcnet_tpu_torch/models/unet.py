@@ -15,9 +15,10 @@ NHWC tensor is already NCHW in memory).
 Precision follows the JAX module's `dtype`: parameters stay f32 master
 weights, each conv casts its input and weights to `dtype` (bf16 in
 production), BatchNorm runs in f32 and its output is cast back after
-the activation (`BatchNorm.act`; in train mode one op, ops/bn_act.py,
-that keeps only the conv output in `dtype` for the backward). Heads
-stay in `dtype`. No autocast.
+the activation (`conv_bn_act` -> `BatchNorm.act` -> ops/bn_act.py: in
+train mode one op that keeps only the conv output in `dtype` for the
+backward; in eval mode, on a GPU, one pass that also adds the conv
+bias). Heads stay in `dtype`. No autocast.
 
 Train mode (`model.train()`) follows Flax, not torch's defaults, in two
 places. BatchNorm normalizes with the batch statistics and moves its
@@ -56,7 +57,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.bn_act import activation, bn_act
+from ..ops.bn_act import bn_act, bn_act_eval
 
 PRODUCTION_HEADS: Tuple[int, ...] = (1, 14, 3, 2, 1, 360, 60, 60)
 
@@ -85,9 +86,11 @@ class BatchNorm(nn.BatchNorm2d):
     """f32 batch norm with Flax's running-statistics update, applied with
     its activation and cast (`act`).
 
-    Eval: normalizes with the running statistics, as nn.BatchNorm2d.
-    Train: normalizes with the batch statistics (ops/bn_act.py, which
-    keeps only the conv output for the backward) and updates
+    Eval: normalizes with the running statistics, as nn.BatchNorm2d
+    (ops/bn_act.py:bn_act_eval, which adds the conv bias first where it
+    is given). Train: normalizes with the batch statistics
+    (ops/bn_act.py:bn_act, which keeps only the conv output for the
+    backward) and updates
 
         running = 0.9 * running + 0.1 * batch
 
@@ -98,15 +101,15 @@ class BatchNorm(nn.BatchNorm2d):
 
     group = None
 
-    def act(self, x: torch.Tensor, act: str,
-            dtype: torch.dtype) -> torch.Tensor:
-        """act(bn(x)) in `dtype`, x the conv output; act is "relu",
-        "leaky_relu" (slope 0.01) or "none"."""
+    def act(self, x: torch.Tensor, act: str, dtype: torch.dtype,
+            conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """act(bn(x + conv_bias)) in `dtype`, x the conv output; act is
+        "relu", "leaky_relu" (slope 0.01) or "none". conv_bias (eval mode
+        only): the conv's bias in x's type, where the conv left it out."""
         if not self.training:
-            out = F.batch_norm(x.float(), self.running_mean,
+            return bn_act_eval(x, conv_bias, self.running_mean,
                                self.running_var, self.weight, self.bias,
-                               False, 0.0, self.eps)
-            return activation(act)(out).to(dtype)
+                               self.eps, act, dtype)
         y, mean, var = bn_act(x, self.weight, self.bias, self.eps, act,
                               self.group)
         if not getattr(_RECOMPUTE, "active", False):
@@ -147,12 +150,33 @@ def remat(fn: Callable, *args, generator: Optional[torch.Generator] = None):
 
 
 def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
-          transpose: bool = False) -> torch.Tensor:
-    """The conv in the compute dtype, weights cast from the f32 masters."""
-    w, b = conv.weight.to(dtype), conv.bias.to(dtype)
+          transpose: bool = False, bias: bool = True) -> torch.Tensor:
+    """The conv in the compute dtype, weights cast from the f32 masters;
+    bias=False leaves the bias out."""
+    w = conv.weight.to(dtype)
+    b = conv.bias.to(dtype) if bias else None
     if transpose:
         return F.conv_transpose2d(x.to(dtype), w, b, stride=conv.stride)
     return F.conv2d(x.to(dtype), w, b, padding=conv.padding)
+
+
+def _folds_conv_bias(bn: nn.Module, x: torch.Tensor) -> bool:
+    """Whether the conv before `bn` leaves its bias to the BatchNorm: in
+    eval mode on a GPU, where ATen adds a cuDNN convolution's bias in a
+    pass of its own, which bn_act_eval's kernel takes over bit for bit.
+    On the CPU oneDNN adds the bias inside the conv (in bf16 not the same
+    as adding it to the rounded output), so the conv keeps it there."""
+    return not bn.training and x.device.type == "cuda"
+
+
+def conv_bn_act(conv: nn.Module, bn: "BatchNorm", x: torch.Tensor,
+                act: str, dtype: torch.dtype) -> torch.Tensor:
+    """act(bn(conv(x))) in `dtype`: the conv, then `bn.act`, with the
+    conv bias handed to the BatchNorm where `_folds_conv_bias` says so."""
+    if _folds_conv_bias(bn, x):
+        return bn.act(_conv(conv, x, dtype, bias=False), act, dtype,
+                      conv.bias.to(dtype))
+    return bn.act(_conv(conv, x, dtype), act, dtype)
 
 
 class DoubleConv(nn.Module):
@@ -168,7 +192,7 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
-            x = bn.act(_conv(conv, x, dtype), "relu", dtype)
+            x = conv_bn_act(conv, bn, x, "relu", dtype)
         return x
 
 
@@ -247,7 +271,7 @@ class OutConv(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        x = self.bn0.act(_conv(self.conv0, x, dtype), "leaky_relu", dtype)
+        x = conv_bn_act(self.conv0, self.bn0, x, "leaky_relu", dtype)
         x = _dropout(x, self.training, generator)
         return _conv(self.conv1, x, dtype)
 
@@ -379,8 +403,8 @@ class _Trunk(nn.Module):
         LeakyReLU, dropout, then each head's 1x1 on its 128 channels
         (unet.py:169-185 of the JAX package)."""
         dt = self.dtype
-        yb = self.head_bank_bn.act(_conv(self.head_bank, y, dt), "leaky_relu",
-                                   dt)
+        yb = conv_bn_act(self.head_bank, self.head_bank_bn, y, "leaky_relu",
+                         dt)
         yb = _dropout(yb, self.training, generator)
         # One split, not n slices: its backward is a single concatenation
         # of the heads' gradients, where a slice's backward writes a zero

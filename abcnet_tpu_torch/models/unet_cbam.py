@@ -10,7 +10,7 @@ Differences from the production model:
   * OutConv without dropout; the heads come back in f32.
 11,177,340 parameters at the production heads. Precision follows the
 production model: convs and dense layers in `dtype` on f32 masters,
-BatchNorm in f32 (`BatchNorm.act`, as the production model).
+BatchNorm in f32 (`conv_bn_act`, as the production model).
 
 It returns the dense head dict only, as the JAX module does: a training
 variant (`train.trainer.create_state(cfg, model=UNetCBAM(...))`), not
@@ -29,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .unet import (BN_EPS, BN_MOMENTUM, PRODUCTION_HEADS, BatchNorm, _conv,
-                   _crop_or_pad_to, head_names)
+                   _crop_or_pad_to, conv_bn_act, head_names)
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor,
@@ -95,8 +95,8 @@ class DoubleConvCBAM(nn.Module):
             self.conv2 = nn.Conv2d(in_features, features, 1)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = self.bn0.act(_conv(self.conv0, x, dtype), "relu", dtype)
-        y = self.bn1.act(_conv(self.conv1, y, dtype), "none", dtype)
+        y = conv_bn_act(self.conv0, self.bn0, x, "relu", dtype)
+        y = conv_bn_act(self.conv1, self.bn1, y, "none", dtype)
         y = self.cbam(y, dtype)
         res = _conv(self.conv2, x, dtype) if hasattr(self, "conv2") \
             else x.to(dtype)
@@ -138,7 +138,7 @@ class OutConvNoDropout(nn.Module):
         self.conv1 = nn.Conv2d(in_features, out_features, 1)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        x = self.bn0.act(_conv(self.conv0, x, dtype), "leaky_relu", dtype)
+        x = conv_bn_act(self.conv0, self.bn0, x, "leaky_relu", dtype)
         return _conv(self.conv1, x, dtype)
 
 

@@ -1,4 +1,5 @@
-"""Train-mode BatchNorm -> activation -> cast as one autograd op.
+"""BatchNorm -> activation -> cast as one op: train mode (`bn_act`, an
+autograd op) and eval mode (`bn_act_eval`, forward only).
 
 `bn_act(x, weight, bias, eps, act, group)` is the port's one train-mode
 BatchNorm. It replaces the chain `act(F.batch_norm(x.float())).to(dtype)`,
@@ -30,8 +31,19 @@ variances), and the backward all-reduces the two sums between its
 reduction and its apply. The weight and bias gradients stay this rank's
 sums; the trainer's gradient all-reduce adds them up.
 
-Each kernel entry point counts its launches (`stats.launches`, ...), as
-ops/unpack.py does; `launches()` is their sum.
+`bn_act_eval(x, conv_bias, running_mean, running_var, weight, bias, eps,
+act, dtype)` is the eval-mode BatchNorm of serving, `eval_step` and the
+metrics step: act(F.batch_norm eval(x + conv_bias)) in `dtype`, x the
+conv output without its bias. A CUDA tensor goes through kernel (e) of
+`csrc/bn_act.cu` (`eval_apply`), one pass that reads x and writes y, in
+place of the conv bias add_, .float(), F.batch_norm, the activation and
+.to() the port ran before; it has no backward and raises where autograd
+would need one. A CPU tensor goes through `bn_act_eval_plain`, which is
+that chain.
+
+Each kernel entry point counts its launches (`stats.launches`, ...,
+`eval_apply.launches`), as ops/unpack.py does; `launches()` is the sum of
+the four train-mode ones.
 """
 
 from __future__ import annotations
@@ -103,6 +115,8 @@ def _lib() -> ctypes.CDLL:
                                     p, p, p],
         "abcnet_bn_act_grad_apply": [p, p, p, i, i, i, ll, ll, p, p, p, p, f,
                                      p],
+        "abcnet_bn_act_eval": [p, p, i, i, i, i, ll, ll, ll, p, p, p, p, p, f,
+                               p],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
@@ -253,18 +267,63 @@ def grad_apply(x: torch.Tensor, dy: torch.Tensor, st: torch.Tensor,
     return dx
 
 
+def eval_apply(x: torch.Tensor, conv_bias: Optional[torch.Tensor],
+               running_mean: torch.Tensor, running_var: torch.Tensor,
+               weight: torch.Tensor, bias: torch.Tensor, eps: float,
+               act: str) -> torch.Tensor:
+    """Kernel (e): act(F.batch_norm eval(x + conv_bias)) in x's type and
+    layout, x channels_last or contiguous NCHW (any other layout raises:
+    nothing is copied), conv_bias None or C values of x's type."""
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_act kernels: unsupported device {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"bn_act kernels take bf16 or f32, not {x.dtype}")
+    if x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"bn_act_eval kernel: unsupported shape "
+                         f"{tuple(x.shape)}")
+    cl = x.is_contiguous(memory_format=CHANNELS_LAST)
+    if not (cl or x.is_contiguous()):
+        raise ValueError("bn_act_eval kernel takes a channels_last or "
+                         "contiguous NCHW tensor")
+    _check_vectors(x, running_mean, running_var, weight, bias)
+    if conv_bias is not None and (
+            conv_bias.dtype != x.dtype or conv_bias.device != x.device or
+            not conv_bias.is_contiguous() or
+            conv_bias.shape != (x.shape[1],)):
+        raise ValueError("bn_act_eval kernel: conv_bias must be C contiguous "
+                         "values of x's type on x's device")
+    n, c, h, w = x.shape
+    y = torch.empty_like(x)
+    # a 16-byte vector holds values of one pixel (channels_last) or of
+    # one channel (NCHW): C, or H*W, a multiple of it
+    run = c if cl else h * w
+    vec = int(run * x.element_size() % 16 == 0 and
+              all(t.data_ptr() % 16 == 0 for t in (x, y)))
+    with torch.cuda.device(x.device):
+        err = _lib().abcnet_bn_act_eval(
+            x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), vec,
+            ACTS[act], int(cl), x.numel(), c, h * w,
+            None if conv_bias is None else conv_bias.data_ptr(),
+            running_mean.data_ptr(), running_var.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), eps, stream_ptr(x))
+    _check(err, "eval")
+    eval_apply.launches += 1
+    return y
+
+
 KERNELS = (stats, apply, grad_sums, grad_apply)
-for _k in KERNELS:
+for _k in KERNELS + (eval_apply,):
     _k.launches = 0
 
 
 def launches() -> int:
-    """Launches of the four kernels since their counts were last zeroed."""
+    """Launches of the four train-mode kernels since their counts were
+    last zeroed (the eval kernel's are `eval_apply.launches`)."""
     return sum(k.launches for k in KERNELS)
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in KERNELS + (eval_apply,):
         k.launches = 0
 
 
@@ -406,3 +465,51 @@ def bn_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if act not in ACTS:
         raise ValueError(f"bn_act: act {act!r} is none of {sorted(ACTS)}")
     return _BnAct.apply(x, weight, bias, eps, act, _group(group), True)
+
+
+def bn_act_eval(x: torch.Tensor, conv_bias: Optional[torch.Tensor],
+                running_mean: torch.Tensor, running_var: torch.Tensor,
+                weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                act: str, dtype: torch.dtype) -> torch.Tensor:
+    """act(weight * (xb - running_mean) / sqrt(running_var + eps) + bias)
+    in `dtype` and x's layout, xb = x + conv_bias rounded to x's type (x
+    alone where conv_bias is None): the eval-mode BatchNorm of a conv
+    output x given without its bias.
+
+    A CUDA tensor goes through kernel (e) (`dtype` must be x's type; it
+    has no backward, so a call that autograd would track raises: run eval
+    forwards under torch.no_grad()), a CPU tensor through
+    `bn_act_eval_plain`; anything else raises."""
+    if act not in ACTS:
+        raise ValueError(f"bn_act: act {act!r} is none of {sorted(ACTS)}")
+    if x.device.type == "cpu":
+        return bn_act_eval_plain(x, conv_bias, running_mean, running_var,
+                                 weight, bias, eps, act, dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_act_eval: unsupported device {x.device}")
+    if dtype != x.dtype:
+        raise TypeError(f"bn_act_eval kernel writes x's type {x.dtype}, "
+                        f"not {dtype}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, conv_bias, weight, bias)):
+        raise RuntimeError("bn_act_eval has no backward: run eval-mode "
+                           "forwards under torch.no_grad()")
+    return eval_apply(x, conv_bias, running_mean, running_var, weight, bias,
+                      eps, act)
+
+
+def bn_act_eval_plain(x: torch.Tensor, conv_bias: Optional[torch.Tensor],
+                      running_mean: torch.Tensor, running_var: torch.Tensor,
+                      weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                      act: str, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of `bn_act_eval`, on any device, differentiable: the
+    chain x + conv_bias (in x's type) -> .float() -> F.batch_norm(...,
+    training=False) -> the activation -> .to(dtype)."""
+    if act not in ACTS:
+        raise ValueError(f"bn_act: act {act!r} is none of {sorted(ACTS)}")
+    if conv_bias is not None:
+        x = x + conv_bias[:, None, None]
+    out = F.batch_norm(x.float(), running_mean, running_var, weight, bias,
+                       False, 0.0, eps)
+    return activation(act)(out).to(dtype)

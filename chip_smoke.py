@@ -23,18 +23,26 @@ per phase:
      launch against two plain calls; bn_act, the train-mode BatchNorm ->
      activation -> cast, forward and backward against bn_act_plain at
      the inc1, down5, head and fused-head-bank shapes of a batch of 64,
-     bf16 and f32, each activation, within stated tolerances);
+     bf16 and f32, each activation, within stated tolerances;
+     bn_act_eval, serving's conv bias -> BatchNorm -> activation -> cast,
+     against bn_act_eval_plain at every BatchNorm shape of sparse serving
+     at batch 64 and the fused bank's, bf16 and f32, with the snapshot's
+     statistics and with random ones, and on contiguous NCHW, bit-equal
+     (else within one bf16 ulp, f32 two, counted); then the fixture served
+     through it against the same serving through bn_act_eval_plain);
   3. f32 serving (TF32 off): SMILES against the JAX package's f32 SMILES,
      gate >= 62/64;
   4. bf16 serving, the production setting, through the CLI's serving
      loop at batch 64, with the kernels' launch counts set to 0 just
-     before and read just after: exact match against the truth next to
-     the TPU's, gate port >= TPU - 3/64;
+     before and read just after (one unpack, one NMS and 28 bn_act_eval
+     launches): exact match against the truth next to the TPU's, gate
+     port >= TPU - 3/64;
   5. times on the card: each kernel and its plain version at the serving
      shapes (median of 25 CUDA-event timings, each launched behind a
      sleep kernel so the host's launch overhead is not timed), the bound
      from the bytes each must move or the integer instructions it must
-     run, an empty kernel in the NMS kernel's launch shape, the NMS
+     run (bn_act and bn_act_eval at the inc1 shape), an empty kernel in
+     the NMS kernel's launch shape, the NMS
      kernel at every cluster size, a per-stage breakdown of one batch,
      the serving loop's img/s at batch 64 on fresh input, and a
      torch.profiler trace of the loop (device busy share, device time
@@ -81,6 +89,8 @@ per phase:
  10. variants (bf16, 512², batch 64, seeded init): UNetS2D and UNetCBAM
      take 5 train steps each, S2D also serves; fused_head_bank and
      remat_blocks beside the plain UNet, first-step losses against it;
+     the fused bank's eval forward through bn_act_eval's kernel against
+     bn_act_eval_plain, bit-equal;
  11. quant_serving: prepare_quant on the snapshot, calibrated on 32
      fixture images, the 64 molecules served through the int8 backbone;
      exact match beside bf16, the int8 trunk's time against the bf16
@@ -251,6 +261,38 @@ BN_ACT_OPS_PER_ELEMENT = 3 + 3 + 7 + 6
 # floor's, its tree within 2x.
 BN_STEP_LOSS_REL, BN_STEP_GRAD_REL = 1e-3, 1e-2
 BN_STEP_FLOOR_LOSS, BN_STEP_FLOOR_GRAD = 3.0, 2.0
+# bn_act_eval (ops/bn_act.py, csrc/bn_act.cu kernel (e)): eval-mode conv
+# bias -> BatchNorm -> activation -> cast. Its launches in one eval forward,
+# one a BatchNorm the forward runs: the production UNet's sparse serving
+# (13 DoubleConvs x 2 + the two heatmap heads) and dense forwards (every
+# head: eval_step, the metrics step, test-acc, --dense), the fused head
+# bank (one BatchNorm for the eight heads), UNetS2D (its two stem
+# DoubleConvs in place of the production stem's five).
+EVAL_BN = {"sparse": 28, "dense": 34, "fused_bank": 27, "s2d_sparse": 22}
+# The least f32 operations an element of bn_act_eval: the bias add, the
+# multiply-add, the activation.
+BN_EVAL_OPS_PER_ELEMENT = 3
+# Its cases on the card: every distinct BatchNorm shape of sparse serving
+# at batch 64 and the fused bank, with the snapshot's running statistics,
+# weights and conv bias of a BatchNorm of that shape (the bank's are its
+# eight heads' side by side) and with random ones. The kernel pins the
+# roundings of the chain it replaced, so the tolerance is bit-equality.
+BN_EVAL_SHAPES = {"inc1": ((BATCH, 16, 512, 512), "relu", "inc1.bn0"),
+                  "down1": ((BATCH, 32, 256, 256), "relu",
+                            "down1.double_conv.bn0"),
+                  "down2": ((BATCH, 64, 128, 128), "relu",
+                            "down2.double_conv.bn0"),
+                  "down3": ((BATCH, 128, 64, 64), "relu",
+                            "down3.double_conv.bn0"),
+                  "down4": ((BATCH, 256, 32, 32), "relu",
+                            "down4.double_conv.bn0"),
+                  "down5": ((BATCH, 512, 16, 16), "relu",
+                            "down5.double_conv.bn0"),
+                  "dconv1": ((BATCH, 128, 128, 128), "relu", "dconv1.bn0"),
+                  "head": ((BATCH, 128, 128, 128), "leaky_relu",
+                           "out_atom_target.bn0"),
+                  "head_bank": ((BATCH, 1024, 128, 128), "leaky_relu",
+                                None)}
 TRAIN_STEPS = 30                  # steps of the train_bf16 phase
 TRAIN_LOSS_FRACTION = 0.5         # gate: last total < this x first total
 EVAL_REL_TOL = 1e-3               # train_f32: per loss term against JAX
@@ -763,6 +805,194 @@ def check_bn_act(torch):
     return cases, err
 
 
+def bn_eval_inputs(torch, shape, dtype, gen, dev="cuda",
+                   fmt=None):
+    """(x, conv_bias, (running_mean, running_var, weight, bias)) of one
+    bn_act_eval case on `dev`, random: x a conv output without its bias
+    in `dtype`, channels_last unless `fmt` says otherwise."""
+    c = shape[1]
+
+    def rand(n):
+        return torch.rand(n, device=dev, generator=gen)
+
+    x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.3).to(
+        dtype, memory_format=fmt or torch.channels_last)
+    conv_bias = ((rand(c) - 0.5) * 0.6).to(dtype)
+    return x, conv_bias, ((rand(c) - 0.5) * 2, rand(c) * 3 + 1e-3,
+                          rand(c) + 0.5, rand(c) - 0.5)
+
+
+def _snapshot_bn_terms(torch, model, bn_name):
+    """(conv_bias, (running_mean, running_var, weight, bias)) of the
+    snapshot's BatchNorm `bn_name` and its conv, f32; None: the fused
+    bank's, the eight heads' OutConvs side by side."""
+    mods = dict(model.named_modules())
+    if bn_name is None:
+        pairs = [(model.head(n).conv0, model.head(n).bn0)
+                 for n in model.head_names]
+    else:
+        pairs = [(mods[bn_name.rsplit("bn", 1)[0] + "conv0"],
+                  mods[bn_name])]
+    cat = lambda get: torch.cat([get(c, b).detach().float()  # noqa: E731
+                                 for c, b in pairs])
+    return cat(lambda c, b: c.bias), (
+        cat(lambda c, b: b.running_mean), cat(lambda c, b: b.running_var),
+        cat(lambda c, b: b.weight), cat(lambda c, b: b.bias))
+
+
+def _ulp_check(torch, got, want):
+    """(differing elements, max |got - want|, every difference within one
+    bf16 ulp (f32: two ulps) of want)."""
+    bad = got != want
+    n = int(bad.sum())
+    if n == 0:
+        return 0, 0.0, True
+    g, w = got[bad].float(), want[bad].float()
+    _, e = torch.frexp(w)
+    ulps = 1 if got.dtype == torch.bfloat16 else 2
+    bits = 8 if got.dtype == torch.bfloat16 else 24
+    tol = ulps * torch.ldexp(torch.ones_like(w), e - bits)
+    return n, float((g - w).abs().max()), bool(((g - w).abs() <= tol).all())
+
+
+def check_bn_act_eval(torch):
+    """bn_act_eval's kernel against bn_act_eval_plain at BN_EVAL_SHAPES,
+    bf16 and f32, channels_last, with the snapshot's statistics and conv
+    bias and with random ones; then a contiguous NCHW case (the kernel's
+    second index path). Returns (cases, the largest |y - y_plain|)."""
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.models.weights import load_snapshot
+    from abcnet_tpu_torch.ops.bn_act import bn_act_eval, bn_act_eval_plain
+
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    runs = [(name, shape, act, bn_name, stats, dtype, None)
+            for name, (shape, act, bn_name) in BN_EVAL_SHAPES.items()
+            for stats in ("snapshot", "random")
+            for dtype in (torch.bfloat16, torch.float32)]
+    runs.append(("down3_nchw", BN_EVAL_SHAPES["down3"][0], "relu",
+                 BN_EVAL_SHAPES["down3"][2], "snapshot", torch.bfloat16,
+                 torch.contiguous_format))
+    cases, err = [], 0.0
+    for name, shape, act, bn_name, stats, dtype, fmt in runs:
+        x, cb, st = bn_eval_inputs(torch, shape, dtype, gen, fmt=fmt)
+        if stats == "snapshot":
+            cb, st = _snapshot_bn_terms(torch, model, bn_name)
+            cb = cb.to(dtype)
+        with torch.no_grad():
+            got = bn_act_eval(x, cb, *st, BN_EPS, act, dtype)
+            want = bn_act_eval_plain(x, cb, *st, BN_EPS, act, dtype)
+        torch.cuda.synchronize()
+        differing, max_err, within = _ulp_check(torch, got, want)
+        err = max(err, max_err)
+        cases.append({"case": name, "shape": list(shape), "act": act,
+                      "dtype": str(dtype)[6:], "stats": stats,
+                      "layout": "nchw" if fmt else "channels_last",
+                      "bit_equal": differing == 0,
+                      "differing_elements": differing,
+                      "max_abs_err": max_err, "within_ulps": within,
+                      "same_layout": got.stride() == x.stride(),
+                      "ok": within and got.stride() == x.stride()})
+        del x, got, want
+        torch.cuda.empty_cache()
+    del model
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"bn_act_eval differs from bn_act_eval_plain: "
+                             f"{bad[:4]}")
+    return cases, err
+
+
+def _bn_eval_layouts(torch, model, fixture):
+    """{dtype: {"sparse" | "dense": (calls whose x is channels_last,
+    calls)}} of bn_act_eval in the sparse serving forward and the dense
+    (eval_step's) forward of the fixture by `model` (bf16, the snapshot),
+    in bf16 and in f32 with TF32 off: the layout each BatchNorm meets."""
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.infer.decode import DENSE_HEADS_SPARSE_MODE
+    from abcnet_tpu_torch.models import unet
+    from abcnet_tpu_torch.ops import bn_act
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+
+    seen = []
+
+    def recording(x, *rest):
+        seen.append(x.is_contiguous(memory_format=torch.channels_last))
+        return bn_act.bn_act_eval(x, *rest)
+
+    bits = torch.from_numpy(pack_images(fixture["images"])).cuda()
+    tf32 = torch.backends.cudnn.allow_tf32
+    out = {}
+    unet.bn_act_eval = recording
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+            model.dtype = dtype           # the compute dtype; f32 masters
+            masks = unpack_bits(bits, dtype)[..., None]
+            out[str(dtype)[6:]] = {}
+            for mode, kw in (("sparse", {"dense_heads":
+                                         DENSE_HEADS_SPARSE_MODE,
+                                         "return_features": True}),
+                             ("dense", {})):
+                seen.clear()
+                with torch.no_grad():
+                    model(masks, **kw)
+                out[str(dtype)[6:]][mode] = (sum(seen), len(seen))
+    finally:
+        unet.bn_act_eval = bn_act.bn_act_eval
+        torch.backends.cudnn.allow_tf32 = tf32
+        model.dtype = torch.bfloat16
+    return out
+
+
+def check_bn_act_eval_serving(torch, fixture):
+    """bf16 serving of the fixture (make_infer_pipeline on the snapshot,
+    one batch of 64) through bn_act_eval's kernel against the same
+    serving through bn_act_eval_plain (the name models.unet calls
+    patched): the peak dicts bit-equal, or else SMILES >= BATCH - 1 equal
+    with the differing peak entries counted."""
+    import numpy as np
+
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT, img2smiles_loop
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models import unet
+    from abcnet_tpu_torch.models.weights import load_snapshot
+    from abcnet_tpu_torch.ops import bn_act
+
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.bfloat16)
+    run = make_infer_pipeline(model, "cuda")
+    images = fixture["images"]
+    reset_launches()
+    got = run(images)
+    launches = read_launches()
+    got_smiles = img2smiles_loop(run, list(images), BATCH, log_every=0)
+    unet.bn_act_eval = bn_act.bn_act_eval_plain
+    try:
+        want = run(images)
+        want_smiles = img2smiles_loop(run, list(images), BATCH, log_every=0)
+    finally:
+        unet.bn_act_eval = bn_act.bn_act_eval
+    equal = _peaks_equal(want, got)
+    agree = sum(a == b for a, b in zip(got_smiles, want_smiles))
+    layouts = _bn_eval_layouts(torch, model, fixture)
+    res = {"peaks_bit_equal": equal,
+           "differing_peak_entries": {k: int(np.sum(got[k] != want[k]))
+                                      for k in want},
+           "smiles_agree": agree, "n": len(images),
+           "launches": launches["bn_act_eval"],
+           "channels_last_calls": layouts,
+           "ok": (equal or agree >= len(images) - 1)
+           and launches == serving_launches(1)
+           and all(n == EVAL_BN[mode] for by_mode in layouts.values()
+                   for mode, (_, n) in by_mode.items())}
+    del model, run
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError(f"serving through bn_act_eval differs from "
+                             f"bn_act_eval_plain: {res}")
+    return res
+
+
 def phase_kernels(torch, fixture):
     import numpy as np
 
@@ -818,6 +1048,8 @@ def phase_kernels(torch, fixture):
         raise AssertionError("nms_topk: an exhausted slot's index differs "
                              "from the plain version")
     bn_cases, bn_err = check_bn_act(torch)
+    eval_cases, eval_err = check_bn_act_eval(torch)
+    eval_serving = check_bn_act_eval_serving(torch, fixture)
     emit("kernels_vs_plain", ok=True, unpack_cases=unpack_cases,
          unpack_max_abs_err=unpack_err, noise_cases=noise_cases,
          noise_max_abs_err=noise_err, nms_cases=nms_cases,
@@ -828,9 +1060,14 @@ def phase_kernels(torch, fixture):
                      "of max|y|, masks differ only at ties (|pre| <= "
                      f"{BN_TIE_REL} of max); dx {BN_DX_REL} relative L2 "
                      "(f32: where the masks agree); dweight, dbias "
-                     f"{BN_DPARAM_REL}")
+                     f"{BN_DPARAM_REL}",
+         bn_act_eval_cases=eval_cases, bn_act_eval_max_abs_err=eval_err,
+         bn_act_eval_gate="bit-equal to bn_act_eval_plain, or else within "
+                          "one bf16 ulp (f32: two ulps) with the differing "
+                          "elements counted",
+         bn_act_eval_serving=eval_serving)
     return {"unpack_bits": unpack_err, "unpack_noise": noise_err,
-            "nms_topk": nms_err, "bn_act": bn_err}
+            "nms_topk": nms_err, "bn_act": bn_err, "bn_act_eval": eval_err}
 
 
 def serve(torch, fixture, dtype, images=None):
@@ -862,17 +1099,13 @@ def phase_f32(torch, fixture):
 
 def phase_bf16(torch, fixture):
     from abcnet_tpu_torch.eval.scoring import score_pairs
-    from abcnet_tpu_torch.ops.peaks import nms_topk
-    from abcnet_tpu_torch.ops.unpack import unpack_bits
 
     torch.cuda.reset_peak_memory_stats()
-    unpack_bits.launches = 0
-    nms_topk.launches = 0
+    reset_launches()
     t0 = time.time()
     model, run, preds = serve(torch, fixture, torch.bfloat16)
     wall = time.time() - t0
-    launches = {"unpack_bits": unpack_bits.launches,
-                "nms_topk": nms_topk.launches}
+    launches = read_launches()
     truth = fixture["truth"].tolist()
     tpu = fixture["tpu_bf16"].tolist()
     port_rep = score_pairs(truth, [p or None for p in preds])
@@ -880,12 +1113,13 @@ def phase_bf16(torch, fixture):
     agree = sum(p == t for p, t in zip(preds, tpu))
     n_batches = -(-len(truth) // BATCH)
     ok = (port_rep.exact_match >= tpu_rep.exact_match - 3 / 64
-          and launches == {"unpack_bits": n_batches, "nms_topk": n_batches})
+          and launches == serving_launches(n_batches))
     emit("serving_bf16", ok=ok, launches=launches,
          agree_with_tpu_bf16=agree, n=len(truth),
          port_exact=port_rep.exact_match, tpu_exact=tpu_rep.exact_match,
          gate="port_exact >= tpu_exact - 3/64; one unpack and one NMS "
-              "launch per batch", port=str(port_rep),
+              f"launch per batch, {EVAL_BN['sparse']} bn_act_eval (one a "
+              "BatchNorm), no train kernel", port=str(port_rep),
          tpu=str(tpu_rep), wall_s_incl_load=wall,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          mismatched_vs_tpu=[{"row": i, "port": p, "tpu": t}
@@ -1003,6 +1237,43 @@ def bn_act_row(torch, launches, errs):
                    "statistics, activates and casts"}
 
 
+def bn_act_eval_row(torch, launches, errs):
+    """The kernels-line row of bn_act_eval at the inc1 shape, bf16, relu,
+    with a conv bias: the kernel, and bn_act_eval_plain (the chain it
+    replaced: the bias add_, .float(), F.batch_norm, relu, .to()), both
+    without autograd; the bound from the bytes it must move (read x,
+    write y)."""
+    from abcnet_tpu_torch.ops.bn_act import bn_act_eval, bn_act_eval_plain
+
+    shape = BN_EVAL_SHAPES["inc1"][0]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, cb, st = bn_eval_inputs(torch, shape, torch.bfloat16, gen)
+    with torch.no_grad():
+        ms = device_ms(torch, lambda: bn_act_eval(
+            x, cb, *st, BN_EPS, "relu", torch.bfloat16))
+        plain_ms = device_ms(torch, lambda: bn_act_eval_plain(
+            x, cb, *st, BN_EPS, "relu", torch.bfloat16))
+    t_bytes = x.numel() * x.element_size() * 2 / HBM_BYTES_PER_S * 1e3
+    t_ops = x.numel() * BN_EVAL_OPS_PER_ELEMENT / F32_OPS_PER_S * 1e3
+    del x
+    torch.cuda.empty_cache()
+    return {
+        "name": "bn_act_eval", "route": "cuda",
+        "source": "abcnet_tpu_torch/csrc/bn_act.cu",
+        "replaces": "abcnet_tpu/models/unet.py:40-48 (the XLA fusion of "
+                    "the conv bias, BatchNorm with the running statistics, "
+                    "relu and astype; no Pallas counterpart)",
+        "launches": launches["bn_act_eval"],
+        "max_abs_err": errs["bn_act_eval"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "operations_type": "f32",
+        "shape": f"{shape} bf16, relu, conv bias; launches counted over "
+                 "the serving_bf16 phase",
+        "library": "none: no single PyTorch call adds a bias, normalizes "
+                   "with running statistics, activates and casts"}
+
+
 def phase_times(torch, fixture, model, run, launches, errs):
     import numpy as np
 
@@ -1085,6 +1356,7 @@ def phase_times(torch, fixture, model, run, launches, errs):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "operations_type": ops_type, "shape": shape})
     kernels.append(bn_act_row(torch, launches, errs))
+    kernels.append(bn_act_eval_row(torch, launches, errs))
 
     dense = (torch.randn(BATCH, 128, 128, device="cuda",
                          generator=torch.Generator(device="cuda")
@@ -1148,11 +1420,19 @@ def phase_times(torch, fixture, model, run, launches, errs):
 def trace_summary(prof, n):
     """(device busy microseconds = the union of the kernel spans, device
     milliseconds per operator and per one of `n` batches or steps, largest
-    first) of a torch.profiler trace."""
+    first, the same per kernel name) of a torch.profiler trace. The
+    port's ctypes-launched kernels belong to no PyTorch operator but for
+    an autograd Function's (`_BnAct`): the kernel table names them."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_kernel = {}
+    for e in device:
+        key = e.name[:80]
+        by_kernel[key] = by_kernel.get(key, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / n
+    kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy_us, end = 0.0, None
     for s, e in spans:                       # length of the union
         if end is None or s > end:
@@ -1166,7 +1446,7 @@ def trace_summary(prof, n):
                   if a.device_type == DeviceType.CPU
                   and a.self_device_time_total > 0),
                  key=lambda kv: -kv[1])
-    return busy_us, ops
+    return busy_us, ops, kernels
 
 
 def trace_serving(torch, run, images):
@@ -1184,11 +1464,12 @@ def trace_serving(torch, run, images):
         img2smiles_loop(run, images, BATCH, log_every=0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, ops = trace_summary(prof, n_batches)
+    busy_us, ops, kernels = trace_summary(prof, n_batches)
     emit("serving_trace", ok=True, batches=n_batches,
          device_busy_share=busy_us / wall_us if busy_us else None,
          device_ms_per_batch=busy_us / 1e3 / n_batches,
          top_ops_device_ms_per_batch=dict(ops[:12]),
+         top_kernels_device_ms_per_batch=dict(kernels[:16]),
          note="trace of a separate loop run; busy = union of kernel spans "
               "over the loop's wall time")
 
@@ -1312,7 +1593,9 @@ def phase_train_bf16(torch, fixture, samples):
           and launches["unpack_noise"] == noisy[0]
           and launches["unpack_bits"] == 1 and launches["nms_topk"] == 0
           and launches["bn_act"] == train_bn_launches(state.model,
-                                                      TRAIN_STEPS))
+                                                      TRAIN_STEPS)
+          and launches["bn_act_eval"] == EVAL_BN["dense"] * (
+              noisy[0] - len(totals) + launches["unpack_bits"]))
 
     # Weights through the npz snapshot layout into the serving pipeline.
     with tempfile.TemporaryDirectory() as tmp:
@@ -1331,7 +1614,9 @@ def phase_train_bf16(torch, fixture, samples):
          totals=total_list, gate=f"finite; last < {TRAIN_LOSS_FRACTION} x "
          "first; BN running stats moved; unpack_noise launches == noisy "
          "forward passes; unpack_bits launches == 1 (the evaluation); "
-         "bn_act launches == 4 a BatchNorm a train step",
+         "bn_act launches == 4 a BatchNorm a train step; bn_act_eval "
+         f"launches == {EVAL_BN['dense']} a metrics step and an evaluation "
+         "batch",
          all_finite=finite, bn_running_stats_moved=bn_moved,
          noisy_forward_passes=noisy[0], launches=launches,
          last_terms={k: float(v) for k, v in terms[-1].items()},
@@ -1431,7 +1716,7 @@ def phase_train_times(torch, samples, state, cfg, kernels):
             trainer.train_step(state, batch, i, with_metrics=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, ops = trace_summary(prof, n_trace)
+    busy_us, ops, _ = trace_summary(prof, n_trace)
     noise = next(k for k in kernels if k["name"] == "unpack_noise")
     emit("train_times", ok=True, batch=BATCH, stages_ms=stages,
          fit_loop_steps=more, fit_loop_img_per_s=more * BATCH / loop_s,
@@ -1541,6 +1826,7 @@ def phase_bn_act_step(torch, samples):
     fl_loss, fl_tree = _bn_step_diff(floor[1], floor[0])
     runs = [*bf16.values(), *floor, *f32.values()]
     launches_ok = all(r["launches"]["bn_act"] == r["expect_bn"]
+                      and r["launches"]["bn_act_eval"] == 0
                       for r in runs)
     gates = {
         "f32_losses": max(f32_loss.values()) <= BN_STEP_LOSS_REL,
@@ -1589,15 +1875,27 @@ def reset_launches():
 
 
 def read_launches():
-    """Launches by kernel; bn_act's are those of its four entry points
-    (statistics, apply, backward sums, backward apply) together."""
+    """Launches by kernel; bn_act's are those of its four train-mode entry
+    points (statistics, apply, backward sums, backward apply) together,
+    bn_act_eval's those of the eval kernel."""
     from abcnet_tpu_torch.ops import bn_act
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.unpack import unpack_bits
     return {"unpack_bits": unpack_bits.launches,
             "unpack_noise": unpack_noise.launches,
-            "nms_topk": nms_topk.launches, "bn_act": bn_act.launches()}
+            "nms_topk": nms_topk.launches, "bn_act": bn_act.launches(),
+            "bn_act_eval": bn_act.eval_apply.launches}
+
+
+def serving_launches(batches, eval_batches=0, model="sparse"):
+    """The launch dict of `batches` sparse serving batches and
+    `eval_batches` dense eval forwards (eval_step, test-acc) of the
+    production UNet, nothing trained."""
+    return {"unpack_bits": batches + eval_batches, "unpack_noise": 0,
+            "nms_topk": batches, "bn_act": 0,
+            "bn_act_eval": EVAL_BN[model] * batches
+            + EVAL_BN["dense"] * eval_batches}
 
 
 def train_bn_launches(model, steps):
@@ -1611,11 +1909,12 @@ def train_bn_launches(model, steps):
 def phase_device_guard(torch):
     """Every kernel wrapper on the last visible GPU while GPU 0 is the
     current device, bit-equal to its plain version there (bn_act within
-    the kernels phase's tolerances)."""
+    the kernels phase's tolerances; bn_act_eval bit-equal)."""
     import numpy as np
 
     from abcnet_tpu_torch.data.pipeline import draw_noise_rates
-    from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+    from abcnet_tpu_torch.ops.bn_act import (bn_act, bn_act_eval,
+                                             bn_act_eval_plain, bn_act_plain)
     from abcnet_tpu_torch.ops.noise import (int32_probe, unpack_noise,
                                             unpack_noise_plain)
     from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
@@ -1664,6 +1963,13 @@ def phase_device_guard(torch):
         if not res["ok"] or any(t.device != dev for t in got):
             raise AssertionError(f"bn_act on {dev} differs: {res}")
         checked.append(f"bn_act/{str(dt)[6:]}")
+        x, cb, st = bn_eval_inputs(torch, (8, 32, 64, 64), dt, gen, dev)
+        with torch.no_grad():
+            got = bn_act_eval(x, cb, *st, BN_EPS, "relu", dt)
+            if got.device != dev or not torch.equal(
+                    got, bn_act_eval_plain(x, cb, *st, BN_EPS, "relu", dt)):
+                raise AssertionError(f"bn_act_eval on {dev} differs")
+        checked.append(f"bn_act_eval/{str(dt)[6:]}")
     torch.cuda.synchronize(dev)
     checked += ["null_launch", "int32_probe"]
     if torch.cuda.current_device() != 0:
@@ -1860,7 +2166,9 @@ def phase_ddp_train(torch, samples):
           max(leaf.values()) <= DDP_GRAD_LEAF and tree <= DDP_GRAD_TREE and
           stat_err <= DDP_STAT_REL and ranks_equal and finite and
           len(totals) == DDP_STEPS and
-          int(r0["launches/unpack_noise"]) >= DDP_STEPS)
+          int(r0["launches/unpack_noise"]) >= DDP_STEPS and
+          int(r0["launches/bn_act_eval"]) == EVAL_BN["dense"] * (
+              int(r0["launches/unpack_noise"]) - DDP_STEPS))
     per_rank = [{"peak_mem_gib": float(r["bf16/peak_mem_gib"]),
                  "step_ms_median_2_to_10": float(np.median(
                      r["bf16/step_ms"][1:])),
@@ -1878,7 +2186,8 @@ def phase_ddp_train(torch, samples):
          ranks_bit_equal=ranks_equal,
          gate=f"losses <= {DDP_LOSS_REL}, leaves <= {DDP_GRAD_LEAF}, tree <= "
               f"{DDP_GRAD_TREE}, stats <= {DDP_STAT_REL} relative; ranks "
-              "bit-equal; bf16 totals finite",
+              "bit-equal; bf16 totals finite; bn_act_eval "
+              f"{EVAL_BN['dense']} a metrics step",
          bf16_global_batch=DDP_BATCH_BF16, bf16_steps=DDP_STEPS,
          bf16_totals=totals, per_rank=per_rank,
          note=("both ranks share one card over gloo: a check of the "
@@ -1948,7 +2257,7 @@ def phase_mesh_serving(torch, fixture, bf16_model):
         run(batch)
     img_s = len(fresh) * BATCH / (time.perf_counter() - t0)
     ok = equal and agree >= BATCH - MESH_SMILES_SLACK and \
-        launches["unpack_bits"] == n and launches["nms_topk"] == n
+        launches == serving_launches(n)
     emit("mesh_serving", ok=ok, gpus=gpus, devices=[str(d) for d in
                                                     mesh.devices],
          batch=BATCH, peaks_equal_blockwise=equal,
@@ -1960,7 +2269,7 @@ def phase_mesh_serving(torch, fixture, bf16_model):
          gate=f"peak dicts equal to the unsharded pipeline on each row block; "
               f"SMILES of >= {BATCH - MESH_SMILES_SLACK}/{BATCH} equal to the "
               "whole-batch run; one unpack and one NMS launch per device per "
-              "batch",
+              f"batch, {EVAL_BN['sparse']} bn_act_eval",
          note="img/s: dispatch + fetch per batch over 8 fresh batches, no "
               "assembly" + ("" if gpus > 1 else
                             f"; one GPU: {MESH_BLOCKS} row blocks on it"))
@@ -2105,8 +2414,8 @@ def phase_multiproc_serving(torch, fixture, bf16_model, bf16_preds):
                     if k.startswith("launches/")}
         n_batches = int(got["batches"])
         equal.append(same)
-        launches_ok.append(n_batches == 1 and launches == {
-            "unpack_bits": 1, "unpack_noise": 0, "nms_topk": 1, "bn_act": 0})
+        launches_ok.append(n_batches == 1 and
+                           launches == serving_launches(1))
         per_rank.append({"device": str(got["device"]),
                          "rows": int(got["rows"]), "batches": n_batches,
                          "peaks_equal_blockwise": same,
@@ -2130,7 +2439,8 @@ def phase_multiproc_serving(torch, fixture, bf16_model, bf16_preds):
               "its row block; SMILES of >= "
               f"{len(images) - MESH_SMILES_SLACK}/{len(images)} equal to the "
               "whole-batch run; one unpack and one NMS launch per rank per "
-              "batch; both ranks hold rank 0's weights",
+              f"batch, {EVAL_BN['sparse']} bn_act_eval; both ranks hold rank "
+              "0's weights",
          note="img/s: dispatch + fetch of 8 fresh batches of a rank's rows, "
               "no assembly, both ranks at once" + (
                   "; both ranks share one card over gloo: no speed figure "
@@ -2166,6 +2476,41 @@ def _train_variant(torch, trainer, model, batch, steps, rng0=0):
             first = {k: float(v) for k, v in losses.items()}
     return (state, totals, first, times,
             torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _fused_bank_eval(torch, fused_tree, fixture):
+    """The fused head bank's eval forward (bf16, the 64 fixture masks)
+    through bn_act_eval's kernel against the same forward through
+    bn_act_eval_plain (the name models.unet calls patched): (row, launches
+    of the kernel's forward)."""
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.models import UNet, unet
+    from abcnet_tpu_torch.models.weights import from_flax
+    from abcnet_tpu_torch.ops import bn_act
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+
+    model = UNet(dtype=torch.bfloat16, fused_head_bank=True)
+    model.load_state_dict(from_flax(fused_tree["params"],
+                                    fused_tree["batch_stats"]))
+    model = model.to("cuda").eval()
+    masks = unpack_bits(torch.from_numpy(pack_images(fixture["images"]))
+                        .cuda(), torch.bfloat16)[..., None]
+    with torch.no_grad():
+        reset_launches()
+        got = model(masks)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        unet.bn_act_eval = bn_act.bn_act_eval_plain
+        try:
+            want = model(masks)
+        finally:
+            unet.bn_act_eval = bn_act.bn_act_eval
+    equal = all(torch.equal(got[k], want[k]) for k in want)
+    row = {"heads_equal_to_plain": equal, "launches": launches,
+           "ok": equal and launches["bn_act_eval"] == EVAL_BN["fused_bank"]}
+    del model, masks, got, want
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 def phase_variants(torch, fixture, samples):
@@ -2208,7 +2553,8 @@ def phase_variants(torch, fixture, samples):
                       "step_ms": times, "peak_mem_gib": peak,
                       "train_launches": launches[f"{name}_train"]}
         ok = ok and fell and \
-            launches[f"{name}_train"]["unpack_noise"] == VARIANT_STEPS
+            launches[f"{name}_train"]["unpack_noise"] == VARIANT_STEPS and \
+            launches[f"{name}_train"]["bn_act_eval"] == 0
         if name == "s2d":
             reset_launches()
             preds = img2smiles_loop(make_infer_pipeline(model.eval(), "cuda"),
@@ -2216,9 +2562,8 @@ def phase_variants(torch, fixture, samples):
                                     log_every=0)
             torch.cuda.synchronize()
             launches["s2d_serving"] = read_launches()
-            served = launches["s2d_serving"]["unpack_bits"] == 1 and \
-                launches["s2d_serving"]["nms_topk"] == 1 and \
-                len(preds) == BATCH
+            served = launches["s2d_serving"] == serving_launches(
+                1, model="s2d_sparse") and len(preds) == BATCH
             rows[name]["served"] = len(preds)
             rows[name]["serving_launches"] = launches["s2d_serving"]
             ok = ok and served
@@ -2238,6 +2583,9 @@ def phase_variants(torch, fixture, samples):
         "remat_blocks": lambda: UNet(dtype=bf16,
                                      remat_blocks=UNet.BLOCKS + ("heads",)),
     }
+    rows["fused_head_bank_eval"], launches["fused_bank_eval"] = \
+        _fused_bank_eval(torch, fused_tree, fixture)
+    ok = ok and rows["fused_head_bank_eval"]["ok"]
     firsts = {}
     for name, make in makers.items():
         model = make()
@@ -2278,7 +2626,10 @@ def phase_variants(torch, fixture, samples):
     emit("variants", ok=ok, batch=BATCH, dtype="bfloat16", size=512,
          steps=VARIANT_STEPS, rows=rows,
          gate=f"S2D and CBAM finite with the loss falling, one noise launch "
-              f"a step; S2D serves with one unpack and one NMS launch; "
+              f"a step, no bn_act_eval; S2D serves with one unpack and one "
+              f"NMS launch and {EVAL_BN['s2d_sparse']} bn_act_eval; the fused "
+              f"bank's eval forward through the kernel bit-equal to "
+              f"bn_act_eval_plain, {EVAL_BN['fused_bank']} launches; "
               f"first-step losses: remat equal, fused within "
               f"{FUSED_LOSS_REL} relative",
          note="5 train_steps on one resident batch of the 64 fixture "
@@ -2354,7 +2705,7 @@ def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
                        "equal": bool(torch.equal(got.double(), want))}
     ok = (all(e["equal"] for e in exact.values()) and
           q_rep.exact_match >= b_rep.exact_match - QUANT_EXACT_SLACK and
-          launches["unpack_bits"] == 1 and launches["nms_topk"] == 1)
+          launches == {**serving_launches(1), "bn_act_eval": 0})
     emit("quant_serving", ok=ok, n=len(truth), calibration_images=32,
          prepare_s=prep_s, int8_exact=q_rep.exact_match,
          bf16_exact=b_rep.exact_match, agree_with_bf16=agree,
@@ -2363,7 +2714,7 @@ def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
          int32_vs_float64_conv=exact,
          gate=f"int8 exact >= bf16 exact - {QUANT_EXACT_SLACK:.4f}; int32 "
               "accumulators equal to a float64 conv; one unpack and one NMS "
-              "launch",
+              "launch, no BatchNorm kernel (the int8 backbone folds them)",
          note="backbone ms: forward_quant vs the bf16 UNet trunk + heatmap "
               "heads on the same 64 masks, median of 5 CUDA-event timings")
     if not ok:
@@ -2631,9 +2982,7 @@ def phase_final_eval(torch, pools):
     n_batches = len(truths) // fe.EVAL_BATCH
     ok = (allrep.exact_match >= FINAL_EVAL_TPU_EXACT - FINAL_EVAL_SLACK
           and allrep.decode_rate >= FINAL_EVAL_DECODE_MIN
-          and launches["unpack_bits"] == 2 * n_batches
-          and launches["nms_topk"] == n_batches
-          and launches["unpack_noise"] == 0)
+          and launches == serving_launches(n_batches, n_batches))
     emit("final_eval", ok=ok, snapshot_step=step, dtype="bfloat16",
          batch=fe.EVAL_BATCH, per_lineage=per_lineage,
          overall=report(allrep), overall_int_cell=report(allrep_int),
@@ -2645,7 +2994,9 @@ def phase_final_eval(torch, pools):
          gate=f"overall exact >= {FINAL_EVAL_TPU_EXACT} - {FINAL_EVAL_SLACK} "
               f"(the TPU's); decode rate >= {FINAL_EVAL_DECODE_MIN}; per "
               "batch of 16 one unpack launch for the heatmap metrics, and "
-              "one unpack and one NMS launch for serving",
+              "one unpack and one NMS launch for serving; bn_act_eval "
+              f"{EVAL_BN['dense']} a metrics batch and {EVAL_BN['sparse']} a "
+              "serving batch",
          mismatched_vs_tpu=[{"row": i, "port": p, "tpu": t} for i, (p, t)
                             in enumerate(zip(preds, tpu)) if (p or "") != t])
     if not ok:
@@ -2814,12 +3165,8 @@ def serve_and_score_checkpoint(torch, ds, ck, tmp, module, times, by_path):
             torch.equal(a, b) for g in want_counts
             for a, b in zip(counted[0][g], want_counts[g]))
     n_acc = len(examples) // batch_acc
-    launches_ok = (by_path["img2smiles_ckpt"] == {
-        "unpack_bits": n_serve, "unpack_noise": 0, "nms_topk": n_serve,
-        "bn_act": 0}
-        and by_path["test_acc_ckpt"] == {
-            "unpack_bits": n_acc, "unpack_noise": 0, "nms_topk": 0,
-            "bn_act": 0})
+    launches_ok = (by_path["img2smiles_ckpt"] == serving_launches(n_serve)
+                   and by_path["test_acc_ckpt"] == serving_launches(0, n_acc))
     return {"ok": peaks_equal and counts_equal and launches_ok,
             "weights_line": first, "printed_step": printed,
             "serving_batches": n_serve, "peaks_equal_in_memory": peaks_equal,
@@ -2958,9 +3305,18 @@ def phase_cli_loop(torch):
         for g in want["groups"].tolist())
 
     steps = len(totals)
-    noise = by_path["gen_train_synthetic"]["unpack_noise"]
+    trained_n = by_path["gen_train_synthetic"]
+    noise = trained_n["unpack_noise"]
+    # a dense eval forward a metrics step and an evaluation batch (each
+    # unpacks once); sparse serving batches of 64, test-acc batches of 16
+    launches_ok = (
+        trained_n["bn_act_eval"] == EVAL_BN["dense"] * (
+            noisy[0] - steps + trained_n["unpack_bits"])
+        and by_path["img2smiles_gen"] == serving_launches(-(-n_gen // 64))
+        and by_path["test_acc"] == serving_launches(0, n_gen // 16))
     same_metrics = ("exact_canonical", "decode_rate", "n", "decoded")
     ok = (n_gen == 64 and finite and steps > 0 and noise == noisy[0]
+          and launches_ok
           and bool(ckpts) and "exact" in serve_score
           and "== atom_type ==" in test_acc_out and count_ok
           and all(cal[k] == cal_inchi[k] for k in same_metrics)
@@ -2989,7 +3345,10 @@ def phase_cli_loop(torch):
               "directory load the step fit ended at, their peak dicts and "
               "counts equal to the module fit left in memory, bit for bit, "
               "one unpack and one NMS launch per serving batch, one unpack "
-              "per test-acc batch")
+              "per test-acc batch; bn_act_eval "
+              f"{EVAL_BN['sparse']} a serving batch, {EVAL_BN['dense']} a "
+              "test-acc batch, a metrics step and an evaluation batch of "
+              "train, and no train-mode bn_act outside train")
     if not ok:
         raise AssertionError("the CLI loop failed its gates")
     return by_path
@@ -3126,7 +3485,8 @@ def phase_bench(torch):
             "implied_tflops_le_peak": 0 < rec.get("implied_tflops", -1)
             <= bench.H100_PEAK_TFLOPS,
             "launches": n["unpack_bits"] == n["nms_topk"] == calls
-            and n["unpack_noise"] == (bench.TRAIN_STEPS if train else 0),
+            and n["unpack_noise"] == (bench.TRAIN_STEPS if train else 0)
+            and n["bn_act_eval"] == EVAL_BN[mode] * calls,
             "weights_default_snapshot":
                 (rec.get("weights") or {}).get("path") == DEFAULT_SNAPSHOT,
         }
@@ -3156,7 +3516,8 @@ def phase_bench(torch):
         gates[path] = {
             "launches": n["unpack_bits"] == n["nms_topk"] == 0
             and n["unpack_noise"] == bench.TRAIN_STEPS
-            and n["bn_act"] == train_bn_launches(UNet(), bench.TRAIN_STEPS),
+            and n["bn_act"] == train_bn_launches(UNet(), bench.TRAIN_STEPS)
+            and n["bn_act_eval"] == 0,
             "step_finite_positive": math.isfinite(step_s) and step_s > 0,
             "peak": peak <= BENCH_PEAK_GIB[train_batch],
         }
@@ -3195,7 +3556,9 @@ def phase_bench(torch):
               f"call of the serving program ({calls}), one noise launch per "
               f"train step ({bench.TRAIN_STEPS}) and four bn_act launches "
               f"a BatchNorm a train step in the sparse record and in the "
-              f"train steps alone; the default train batch "
+              f"train steps alone; bn_act_eval {EVAL_BN['sparse']} (sparse) "
+              f"or {EVAL_BN['dense']} (dense) a serving call and none in "
+              f"the train steps alone; the default train batch "
               f"{BENCH_TRAIN_BATCH}; train peaks <= {BENCH_PEAK_GIB} GiB "
               f"by batch; the records' weights the default "
               "snapshot; the clean-carry peak dict of buffer 0 bit-equal "
@@ -3252,7 +3615,7 @@ def _eval_decode_ceiling(torch, by_path):
         "ok_per_mode": all(res[m].made == n_mode and res[m].buckets.get(
             "ok", 0) >= CEILING_MIN_OK for m in dc.MODES),
         "launches": n["nms_topk"] == len(dc.MODES) * n_mode
-        and n["unpack_bits"] == n["unpack_noise"] == 0,
+        and n["unpack_bits"] == n["unpack_noise"] == n["bn_act_eval"] == 0,
         "equal_to_cpu_run": all(same.values()),
         "printed_the_result": text == printed,
     }
@@ -3315,7 +3678,8 @@ def _eval_degraded(torch, by_path):
         "threshold_applied": by_name["gray_scan_thr0.2"].report.exact_match
         > by_name["gray_scan_thr0.6_control"].report.exact_match,
         "launches": n["unpack_bits"] == n["nms_topk"]
-        == len(db.VARIANTS) * batches and n["unpack_noise"] == 0,
+        == len(db.VARIANTS) * batches and n["unpack_noise"] == 0
+        and n["bn_act_eval"] == EVAL_BN["sparse"] * n["nms_topk"],
         "first_batch_equals_make_infer_pipeline": all(direct.values()),
     }
     emit("eval_degraded_bench", argv=[str(DEGRADED_N)], columns=[
@@ -3346,7 +3710,8 @@ def _eval_cross_engine(torch, by_path):
         "eval_on_a_decode": a.decode_rate >= CROSS_DECODE_MIN,
         "launches": n["unpack_bits"] == n["nms_topk"]
         == len(ce.ENGINES) * CROSS_N // ce.EVAL_BATCH
-        and n["unpack_noise"] == 0,
+        and n["unpack_noise"] == 0
+        and n["bn_act_eval"] == EVAL_BN["sparse"] * n["nms_topk"],
     }
     emit("eval_cross_engine", argv=[str(CROSS_N)],
          per_engine={e: {"exact": r.report.exact_match,
@@ -3395,7 +3760,8 @@ def _eval_e2e_overfit(torch, by_path):
         # train_step(with_metrics=True) reads its metrics from the step's
         # own forward: no second noise launch in a metrics step
         "launches": n["unpack_noise"] == steps
-        and n["unpack_bits"] == n["nms_topk"] == decode_batches,
+        and n["unpack_bits"] == n["nms_topk"] == decode_batches
+        and n["bn_act_eval"] == EVAL_BN["sparse"] * decode_batches,
     }
     emit("eval_e2e_overfit", argv=list(E2E_ARGS), exit_code=code,
          steps=steps, train_s=float(trained[2]),
@@ -3434,7 +3800,8 @@ def phase_eval_suite(torch):
               f"{CROSS_DECODE_MIN}, one unpack and one NMS launch a batch; "
               "e2e_overfit loss finite and falling, exit code 0 iff the "
               "printed exact > 0, one noise launch a step, one unpack and "
-              "one NMS launch a decode batch")
+              "one NMS launch a decode batch; bn_act_eval "
+              f"{EVAL_BN['sparse']} a serving batch, none in the ceiling")
     if not ok:
         raise AssertionError("the evaluation suite failed its gates")
     return by_path
@@ -3631,7 +3998,9 @@ def _recipe_train_r5(torch, tmp, pool, fixture, by_path):
         "launches": n["unpack_noise"] == res.steps + res.metrics_steps
         and n["unpack_bits"] == eval_batches * len(res.evals)
         and n["nms_topk"] == 0
-        and n["bn_act"] == train_bn_launches(UNet(), res.steps),
+        and n["bn_act"] == train_bn_launches(UNet(), res.steps)
+        and n["bn_act_eval"] == EVAL_BN["dense"] * (
+            res.metrics_steps + n["unpack_bits"]),
     }
     dtypes = [str(z[k].dtype) for k in z.files if k.startswith("params/")]
     emit("recipe_train_r5", argv=argv, steps=res.steps,
@@ -3723,7 +4092,11 @@ def _recipe_finetune_common(torch, res, text, n, peak, out_dir, extra_unpack,
         "launches": n["unpack_noise"] == res.steps + res.metrics_steps
         and n["unpack_bits"] == bp.EVAL_N // recipe.EVAL_BATCH
         * len(res.evals) + extra_unpack and n["nms_topk"] == extra_nms
-        and n["bn_act"] == train_bn_launches(UNet(), res.steps),
+        and n["bn_act"] == train_bn_launches(UNet(), res.steps)
+        # dense a metrics step and an EVAL batch, sparse a serving batch
+        and n["bn_act_eval"] == EVAL_BN["dense"] * (
+            res.metrics_steps + n["unpack_bits"] - extra_unpack)
+        + EVAL_BN["sparse"] * extra_nms,
     }
 
 
@@ -3829,7 +4202,8 @@ def _recipe_hard(torch, tmp, pool, model, train_samples, ref, by_path):
     gates.update({
         "mined_equals_own_count": idx.tolist() == misses,
         "mine_launches": n_mine["unpack_bits"] == n_mine["nms_topk"]
-        == mine_batches and n_mine["unpack_noise"] == 0,
+        == mine_batches and n_mine["unpack_noise"] == 0
+        and n_mine["bn_act_eval"] == EVAL_BN["sparse"] * mine_batches,
         "cache_read_again": f"mined cache: {len(idx)} hard examples"
         in text.splitlines() and np.array_equal(res.hard_idx, idx),
         "final_decode": res.final.decode_rate >= FINAL_EVAL_DECODE_MIN,
@@ -3900,7 +4274,9 @@ def phase_recipe(torch, fixture):
               f"own misses, one unpack and one NMS launch a mining batch, "
               f"the cache read again, FINAL decode >= "
               f"{FINAL_EVAL_DECODE_MIN} and exact >= the snapshot's - "
-              f"{RECIPE_SLACK}")
+              f"{RECIPE_SLACK}; bn_act_eval {EVAL_BN['dense']} a metrics "
+              f"step and an EVAL batch, {EVAL_BN['sparse']} a mining or "
+              f"FINAL batch")
     if not ok:
         raise AssertionError("the training recipe failed its gates")
     return by_path

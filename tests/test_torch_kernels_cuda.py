@@ -528,3 +528,142 @@ def test_bn_act_kernels_reject_what_they_do_not_take(cuda):
     v = torch.ones(4, device=cuda)
     with pytest.raises(ValueError, match="per-channel"):
         ops.apply(x, st, v.double(), v, "relu")
+
+
+# ---------------------------------------------------------------------------
+# bn_act_eval (ops/bn_act.py, csrc/bn_act.cu kernel (e)): eval-mode conv
+# bias -> BatchNorm with the running statistics -> activation -> cast in
+# one pass. The kernel pins the roundings of the chain it replaced (the
+# bias add_, then cuDNN's inference kernel of the tensor's layout), so the
+# tolerance is bit-equality with bn_act_eval_plain.
+# ---------------------------------------------------------------------------
+
+def _bn_eval_inputs(shape, dtype, device, seed=0, fmt=torch.channels_last):
+    """(x, conv_bias, (running_mean, running_var, weight, bias))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+
+    def rand(*s):
+        return torch.rand(*s, device=device, generator=gen)
+
+    x = (torch.randn(shape, device=device, generator=gen) * 2 + 0.3).to(
+        dtype, memory_format=fmt)
+    conv_bias = ((rand(c) - 0.5) * 0.6).to(dtype)
+    stats = ((rand(c) - 0.5) * 2, rand(c) * 3 + 1e-3, rand(c) + 0.5,
+             rand(c) - 0.5)
+    return x, conv_bias, stats
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 512, 512), (64, 512, 16, 16),
+                                   (4, 1024, 128, 128), (3, 5, 7, 9),
+                                   (2, 40, 1, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("fmt", sorted(LAYOUTS))
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_bn_act_eval_kernel_matches_plain(cuda, shape, dtype, act, fmt,
+                                          with_bias):
+    from abcnet_tpu_torch.ops import bn_act as ops
+    x, cb, st = _bn_eval_inputs(shape, dtype, cuda, fmt=LAYOUTS[fmt])
+    cb = cb if with_bias else None
+    with torch.no_grad():
+        before = ops.eval_apply.launches
+        got = ops.bn_act_eval(x, cb, *st, 1e-5, act, dtype)
+        torch.cuda.synchronize()
+        assert ops.eval_apply.launches - before == 1
+        want = ops.bn_act_eval_plain(x, cb, *st, 1e-5, act, dtype)
+    assert got.dtype == dtype and got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+def test_bn_act_eval_has_no_backward(cuda):
+    """A call that autograd would track raises; under no_grad it runs."""
+    from abcnet_tpu_torch.models.unet import UNet
+    from abcnet_tpu_torch.ops.bn_act import bn_act_eval
+    x, cb, st = _bn_eval_inputs((2, 16, 8, 8), torch.bfloat16, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bn_act_eval(x.requires_grad_(True), cb, *st, 1e-5, "relu",
+                    torch.bfloat16)
+    model = UNet(heads=(1, 1), dtype=torch.bfloat16).to(cuda).eval()
+    images = torch.zeros(1, 64, 64, 1, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(images)
+    with torch.no_grad():
+        assert all(v.isfinite().all() for v in model(images).values())
+
+
+def test_bn_act_eval_kernel_rejects_what_it_does_not_take(cuda):
+    from abcnet_tpu_torch.ops.bn_act import bn_act_eval, eval_apply
+    x, cb, st = _bn_eval_inputs((2, 16, 8, 8), torch.bfloat16, cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="channels_last or contiguous"):
+            eval_apply(x[:, :, :, ::2], cb, *st, 1e-5, "relu")
+        with pytest.raises(TypeError):
+            bn_act_eval(x, cb, *st, 1e-5, "relu", torch.float32)
+        with pytest.raises(TypeError):
+            eval_apply(x.half(), None, *st, 1e-5, "relu")
+        with pytest.raises(ValueError, match="conv_bias"):
+            eval_apply(x, cb.float(), *st, 1e-5, "relu")
+        with pytest.raises(ValueError, match="per-channel"):
+            eval_apply(x, cb, st[0].double(), *st[1:], 1e-5, "relu")
+
+
+def _variant(name, dtype):
+    from abcnet_tpu_torch.models.unet import UNet
+    from abcnet_tpu_torch.models.unet_cbam import UNetCBAM
+    from abcnet_tpu_torch.models.unet_s2d import UNetS2D
+    return {"unet": lambda: UNet(dtype=dtype),
+            "fused_bank": lambda: UNet(dtype=dtype, fused_head_bank=True),
+            "s2d": lambda: UNetS2D(dtype=dtype),
+            "cbam": lambda: UNetCBAM(dtype=dtype)}[name]()
+
+
+# eval-mode BatchNorms a forward: dense (every head) and sparse (the two
+# heatmap heads, the serving trunk)
+EVAL_BN_LAUNCHES = {"unet": (34, 28), "fused_bank": (27, None),
+                    "s2d": (28, 22), "cbam": (34, None)}
+
+
+@pytest.mark.parametrize("name", sorted(EVAL_BN_LAUNCHES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_eval_forward_through_the_kernel_is_the_chain(cuda, name, dtype,
+                                                      monkeypatch):
+    """Each model's eval forward through bn_act_eval's kernel is bit-equal
+    to the same forward through bn_act_eval_plain (the chain it
+    replaced), with one launch a BatchNorm."""
+    from abcnet_tpu_torch.infer.decode import DENSE_HEADS_SPARSE_MODE
+    from abcnet_tpu_torch.models import unet
+    from abcnet_tpu_torch.ops import bn_act as ops
+    torch.manual_seed(0)
+    model = _variant(name, dtype).to(cuda).eval()
+    for m in model.modules():
+        if isinstance(m, unet.BatchNorm):
+            m.running_mean.normal_(0.0, 0.3)
+            m.running_var.uniform_(0.5, 2.0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    images = (torch.rand(2, 128, 128, 1, device=cuda, generator=gen)
+              < 0.1).to(dtype)
+    dense_n, sparse_n = EVAL_BN_LAUNCHES[name]
+
+    def forwards():
+        with torch.no_grad():
+            out = [model(images)]
+            if sparse_n is not None:
+                heads, feats = model(images,
+                                     dense_heads=DENSE_HEADS_SPARSE_MODE,
+                                     return_features=True)
+                out.append({**heads, "features": feats})
+        return out
+
+    before = ops.eval_apply.launches
+    got = forwards()
+    assert ops.eval_apply.launches - before == dense_n + (sparse_n or 0)
+    monkeypatch.setattr(unet, "bn_act_eval", ops.bn_act_eval_plain)
+    before = ops.eval_apply.launches
+    want = forwards()
+    assert ops.eval_apply.launches == before
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in g:
+            assert torch.equal(g[k], w[k]), k
