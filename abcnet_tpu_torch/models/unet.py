@@ -17,8 +17,9 @@ weights, each conv casts its input and weights to `dtype` (bf16 in
 production), BatchNorm runs in f32 and its output is cast back after
 the activation (`conv_bn_act` -> `BatchNorm.act` -> ops/bn_act.py: in
 train mode one op that keeps only the conv output in `dtype` for the
-backward; in eval mode, on a GPU, one pass that also adds the conv
-bias). Heads stay in `dtype`. No autocast.
+backward; in eval mode one pass; on a GPU both also add the conv bias,
+and in train mode return its gradient). Heads stay in `dtype`. No
+autocast.
 
 Train mode (`model.train()`) follows Flax, not torch's defaults, in two
 places. BatchNorm normalizes with the batch statistics and moves its
@@ -104,14 +105,15 @@ class BatchNorm(nn.BatchNorm2d):
     def act(self, x: torch.Tensor, act: str, dtype: torch.dtype,
             conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """act(bn(x + conv_bias)) in `dtype`, x the conv output; act is
-        "relu", "leaky_relu" (slope 0.01) or "none". conv_bias (eval mode
-        only): the conv's bias in x's type, where the conv left it out."""
+        "relu", "leaky_relu" (slope 0.01) or "none". conv_bias: the conv's
+        bias in x's type, where the conv left it out (in train mode its
+        gradient comes back through bn_act)."""
         if not self.training:
             return bn_act_eval(x, conv_bias, self.running_mean,
                                self.running_var, self.weight, self.bias,
                                self.eps, act, dtype)
         y, mean, var = bn_act(x, self.weight, self.bias, self.eps, act,
-                              self.group)
+                              self.group, conv_bias)
         if not getattr(_RECOMPUTE, "active", False):
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
@@ -161,12 +163,16 @@ def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
 
 
 def _folds_conv_bias(bn: nn.Module, x: torch.Tensor) -> bool:
-    """Whether the conv before `bn` leaves its bias to the BatchNorm: in
-    eval mode on a GPU, where ATen adds a cuDNN convolution's bias in a
-    pass of its own, which bn_act_eval's kernel takes over bit for bit.
-    On the CPU oneDNN adds the bias inside the conv (in bf16 not the same
-    as adding it to the rounded output), so the conv keeps it there."""
-    return not bn.training and x.device.type == "cuda"
+    """Whether the conv before `bn` leaves its bias to the BatchNorm: on a
+    GPU, where ATen adds a cuDNN convolution's bias in a pass of its own
+    (and sums its gradient in another), which bn_act_eval's kernel (eval)
+    and bn_act's kernels (train) take over. On the CPU oneDNN adds the
+    bias inside the conv (in bf16 not the same as adding it to the rounded
+    output), so the conv keeps it there. `bn` is not read: it stays for
+    the routings patched in its place, which read its mode (the eval-only
+    fold of the tests, the routing before the train-mode fold of
+    chip_smoke.py's train_times)."""
+    return x.device.type == "cuda"
 
 
 def conv_bn_act(conv: nn.Module, bn: "BatchNorm", x: torch.Tensor,

@@ -1,35 +1,40 @@
-"""BatchNorm -> activation -> cast as one op: train mode (`bn_act`, an
-autograd op) and eval mode (`bn_act_eval`, forward only).
+"""Conv bias -> BatchNorm -> activation -> cast as one op: train mode
+(`bn_act`, an autograd op) and eval mode (`bn_act_eval`, forward only).
 
-`bn_act(x, weight, bias, eps, act, group)` is the port's one train-mode
-BatchNorm. It replaces the chain `act(F.batch_norm(x.float())).to(dtype)`,
-which keeps an f32 copy of the conv output and an f32 activation output
-for its backward, with an op that keeps the conv output `x` itself (bf16
-in production) and per-channel vectors, and recomputes the normalisation
-in the backward. The JAX package gets the same from XLA, which fuses
+`bn_act(x, weight, bias, eps, act, group, conv_bias)` is the port's one
+train-mode BatchNorm. It replaces the chain `act(F.batch_norm((x +
+conv_bias).float())).to(dtype)`, which adds the conv bias in a pass of
+its own, keeps an f32 copy of the conv output and an f32 activation
+output for its backward and sums the bias gradient in another pass, with
+an op that takes the conv output `x` without its bias, keeps `x` itself
+(bf16 in production) and per-channel vectors, recomputes the
+normalisation in the backward and returns the bias gradient (in the
+bias's type) as the gradient of its `conv_bias` input. The JAX package
+gets the same from XLA, which fuses nn.Conv's bias ->
 nn.BatchNorm(dtype=f32) -> relu -> astype(bf16) (abcnet_tpu/models/
-unet.py:41-48); no Pallas kernel stands behind it.
+unet.py:40-48); no Pallas kernel stands behind it.
 
 A CUDA tensor goes through the four kernels of `csrc/bn_act.cu` (stats,
-apply, backward sums, backward apply), which take channels_last, the
-layout the port's convolutions run in (the 1-channel input's NHWC view is
-both layouts, and the convolutions keep channels_last from there; another
-layout is copied to it). y and dx are channels_last, as the chain's
-outputs were, so the heads' dropout, which draws its keep mask in memory
-order, draws the masks it drew before. A CPU tensor goes through
-`bn_act_plain`, whose forward is the former chain's exact op sequence
-(F.batch_norm with zeroed scratch buffers and momentum 1) under no_grad,
-and whose backward runs that sequence again with grad enabled: on the
-CPU its outputs, batch statistics and gradients are those of the chain,
-bit for bit.
+apply, backward sums, backward apply with the bias gradient), which take
+channels_last, the layout the port's convolutions run in (the 1-channel
+input's NHWC view is both layouts, and the convolutions keep
+channels_last from there; another layout is copied to it). y and dx are
+channels_last, as the chain's outputs were, so the heads' dropout, which
+draws its keep mask in memory order, draws the masks it drew before. A
+CPU tensor goes through `bn_act_plain`: `x + conv_bias` in x's type
+under autograd, then the former chain's exact op sequence (F.batch_norm
+with zeroed scratch buffers and momentum 1) under no_grad, whose
+backward runs that sequence again with grad enabled: on any device its
+outputs, batch statistics and gradients are those of the chain, bit for
+bit.
 
 With a process group of more than one rank (`group`, data parallel) the
 statistics are those of the global batch: each rank's (count, mean,
 biased variance) is all-gathered between the statistics and the apply and
 pooled (the counts weight the means, the spread of the means adds to the
 variances), and the backward all-reduces the two sums between its
-reduction and its apply. The weight and bias gradients stay this rank's
-sums; the trainer's gradient all-reduce adds them up.
+reduction and its apply. The weight, bias and conv bias gradients stay
+this rank's sums; the trainer's gradient all-reduce adds them up.
 
 `bn_act_eval(x, conv_bias, running_mean, running_var, weight, bias, eps,
 act, dtype)` is the eval-mode BatchNorm of serving, `eval_step` and the
@@ -63,10 +68,15 @@ ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 LEAKY_SLOPE = 0.01
 DTYPES = (torch.bfloat16, torch.float32)
 CHANNELS_LAST = torch.channels_last
-# blocks aimed at by a reduction (132 SMs x 8), and the fewest pixels a
-# thread row of a block takes
-TARGET_BLOCKS = 132 * 8
+# The train-mode kernels' split (csrc/bn_act.cu:train_block): the fewest
+# pixels a thread row of a block takes, and the most channels a block's
+# column holds. The blocks aimed at are those the reduction's kernel has
+# resident at once (`_resident`): one wave, so that no block waits for a
+# second and each column's last block merges as few partials as that
+# allows.
 MIN_ROWS = 4
+COLUMN = 64
+STATS_KIND, SUMS_KIND = 0, 2
 
 
 def activation(act: str):
@@ -109,14 +119,15 @@ def _lib() -> ctypes.CDLL:
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
     sig = {
-        "abcnet_bn_act_stats": [p, i, i, ll, ll, i, ll, p, f, p, p],
-        "abcnet_bn_act_apply": [p, p, i, i, i, ll, ll, p, p, p, p],
-        "abcnet_bn_act_grad_sums": [p, p, i, i, i, ll, ll, i, ll, p, p, p,
-                                    p, p, p],
-        "abcnet_bn_act_grad_apply": [p, p, p, i, i, i, ll, ll, p, p, p, p, f,
-                                     p],
+        "abcnet_bn_act_stats": [p, p, i, i, ll, ll, i, ll, p, f, p, p],
+        "abcnet_bn_act_apply": [p, p, p, i, i, i, ll, ll, i, ll, p, p, p, p],
+        "abcnet_bn_act_grad_sums": [p, p, p, i, i, i, ll, ll, i, ll, p, p,
+                                    p, p, p, p],
+        "abcnet_bn_act_grad_apply": [p, p, p, p, i, i, i, ll, ll, i, ll, p,
+                                     p, p, p, f, p, p, p],
         "abcnet_bn_act_eval": [p, p, i, i, i, i, ll, ll, ll, p, p, p, p, p, f,
                                p],
+        "abcnet_bn_act_resident": [i, i, i, i],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
@@ -158,6 +169,21 @@ def _check_dy(x: torch.Tensor, dy: torch.Tensor) -> None:
                          "device and layout")
 
 
+def _check_conv_bias(x: torch.Tensor,
+                     conv_bias: Optional[torch.Tensor]) -> None:
+    """A conv bias is None or C contiguous values of x's type on x's
+    device."""
+    if conv_bias is None:
+        return
+    if conv_bias.dtype != x.dtype:
+        raise TypeError(f"bn_act: conv_bias must be of x's type {x.dtype}, "
+                        f"not {conv_bias.dtype}")
+    if x.dim() < 2 or conv_bias.shape != (x.shape[1],) or \
+            conv_bias.device != x.device or not conv_bias.is_contiguous():
+        raise ValueError("bn_act: conv_bias must be C contiguous values on "
+                         "x's device")
+
+
 def _vec(c: int, *tensors: torch.Tensor) -> int:
     """1 where 16-byte accesses fit (C a multiple of 16 bytes of values,
     every pointer aligned), else 0."""
@@ -165,20 +191,44 @@ def _vec(c: int, *tensors: torch.Tensor) -> int:
                all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def _split(pixels: int, c: int, vec: int, el: int) -> Tuple[int, int]:
-    """(P, pixels a chunk) of a reduction: a block covers TX channel
-    vectors (TX as csrc/bn_act.cu:reduce_block chooses it) and a chunk of
-    the pixels, with about TARGET_BLOCKS blocks and at least MIN_ROWS
-    pixels a thread row."""
-    cv = c // (16 // el) if vec else c
+@functools.lru_cache(maxsize=None)
+def _resident(device: int, kind: int, bf16: int, vec: int, act: int) -> int:
+    """Blocks of train-mode kernel `kind` that `device` holds at once."""
+    with torch.cuda.device(device):
+        n = _lib().abcnet_bn_act_resident(kind, bf16, vec, act)
+    _check(max(0, -n), "occupancy query")
+    return max(1, n)
+
+
+def _split(x: torch.Tensor, c: int, vec: int, kind: int,
+           act: str = "none") -> Tuple[int, int]:
+    """(P, pixels a chunk) of the train-mode kernels on channels_last x: a
+    block covers TX channel vectors of one column of at most COLUMN
+    channels (TX as csrc/bn_act.cu:train_block chooses it) and a chunk of
+    the pixels, with as many blocks as the reduction's kernel (`kind`)
+    has resident on x's device and at least MIN_ROWS pixels a thread
+    row."""
+    pixels = x.numel() // c
+    el = x.element_size()
+    target = _resident(x.device.index, kind, int(x.dtype == torch.bfloat16),
+                       vec, ACTS[act])
+    width = 16 // el if vec else 1
+    cv = c // width
     tx = 1
-    while tx < cv and tx < 256:
+    while tx < cv and tx < COLUMN // width:
         tx *= 2
     across = -(-cv // tx)
-    blocks = max(1, min(-(-TARGET_BLOCKS // across),
+    blocks = max(1, min(-(-target // across),
                         -(-pixels // (256 // tx * MIN_ROWS)), 65535))
     chunk = -(-pixels // blocks)
     return -(-pixels // chunk), chunk
+
+
+def _scratch(x: torch.Tensor, floats: int, c: int) -> torch.Tensor:
+    """A reduction's scratch: its f32 block partials, then a 32-bit
+    ticket a column (at most c), which the launch zeroes on its
+    stream: each call has its own, whatever else runs on the device."""
+    return torch.empty(floats + c, dtype=torch.float32, device=x.device)
 
 
 def _check(err: int, what: str) -> None:
@@ -187,60 +237,72 @@ def _check(err: int, what: str) -> None:
                            f"{err})")
 
 
-def stats(x: torch.Tensor, eps: float) -> torch.Tensor:
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def stats(x: torch.Tensor, eps: float,
+          conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel (a): (3, C) f32 rows mean, biased variance and 1/sqrt(var +
-    eps) of channels_last `x` per channel."""
+    eps) of channels_last `x` + `conv_bias` (rounded to x's type) per
+    channel."""
+    _check_conv_bias(x, conv_bias)
     pixels, c = _shape(x)
     vec = _vec(c, x)
-    blocks, chunk = _split(pixels, c, vec, x.element_size())
-    part = torch.empty(2 * c * blocks, dtype=torch.float32, device=x.device)
+    blocks, chunk = _split(x, c, vec, STATS_KIND)
+    part = _scratch(x, 2 * c * blocks, c)
     out = torch.empty(3, c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().abcnet_bn_act_stats(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), vec, pixels, c,
-            blocks, chunk, part.data_ptr(), eps, out.data_ptr(),
-            stream_ptr(x))
+            x.data_ptr(), _ptr(conv_bias), int(x.dtype == torch.bfloat16),
+            vec, pixels, c, blocks, chunk, part.data_ptr(), eps,
+            out.data_ptr(), stream_ptr(x))
     _check(err, "stats")
     stats.launches += 1
     return out
 
 
 def apply(x: torch.Tensor, st: torch.Tensor, weight: torch.Tensor,
-          bias: torch.Tensor, act: str) -> torch.Tensor:
-    """Kernel (b): act((x - mean) * invstd * weight + bias) in x's type,
-    channels_last, with `st` the (3, C) rows of `stats`."""
+          bias: torch.Tensor, act: str,
+          conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel (b): act((x + conv_bias - mean) * invstd * weight + bias) in
+    x's type, channels_last, with `st` the (3, C) rows of `stats`."""
+    _check_conv_bias(x, conv_bias)
     pixels, c = _shape(x)
     _check_vectors(x, st, weight, bias)
     y = torch.empty_like(x)
     vec = _vec(c, x, y)
+    blocks, chunk = _split(x, c, vec, STATS_KIND)
     with torch.cuda.device(x.device):
         err = _lib().abcnet_bn_act_apply(
-            x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), vec,
-            ACTS[act], pixels, c, st.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), stream_ptr(x))
+            x.data_ptr(), y.data_ptr(), _ptr(conv_bias),
+            int(x.dtype == torch.bfloat16), vec, ACTS[act], pixels, c,
+            blocks, chunk, st.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            stream_ptr(x))
     _check(err, "apply")
     apply.launches += 1
     return y
 
 
 def grad_sums(x: torch.Tensor, dy: torch.Tensor, st: torch.Tensor,
-              weight: torch.Tensor, bias: torch.Tensor,
-              act: str) -> torch.Tensor:
+              weight: torch.Tensor, bias: torch.Tensor, act: str,
+              conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel (c): (2, C) f32 rows sum(g) and sum(g * xhat) per channel,
-    g = dy * act'(pre)."""
+    g = dy * act'(pre), x + conv_bias normalised."""
+    _check_conv_bias(x, conv_bias)
     pixels, c = _shape(x)
     _check_vectors(x, st, weight, bias)
     _check_dy(x, dy)
     vec = _vec(c, x, dy)
-    blocks, chunk = _split(pixels, c, vec, x.element_size())
-    part = torch.empty(2 * c * blocks, dtype=torch.float32, device=x.device)
+    blocks, chunk = _split(x, c, vec, SUMS_KIND, act)
+    part = _scratch(x, 2 * c * blocks, c)
     sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().abcnet_bn_act_grad_sums(
-            x.data_ptr(), dy.data_ptr(), int(x.dtype == torch.bfloat16), vec,
-            ACTS[act], pixels, c, blocks, chunk, st.data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), part.data_ptr(),
-            sums.data_ptr(), stream_ptr(x))
+            x.data_ptr(), dy.data_ptr(), _ptr(conv_bias),
+            int(x.dtype == torch.bfloat16), vec, ACTS[act], pixels, c,
+            blocks, chunk, st.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            part.data_ptr(), sums.data_ptr(), stream_ptr(x))
     _check(err, "backward sums")
     grad_sums.launches += 1
     return sums
@@ -248,23 +310,33 @@ def grad_sums(x: torch.Tensor, dy: torch.Tensor, st: torch.Tensor,
 
 def grad_apply(x: torch.Tensor, dy: torch.Tensor, st: torch.Tensor,
                weight: torch.Tensor, bias: torch.Tensor, sums: torch.Tensor,
-               inv_n: float, act: str) -> torch.Tensor:
-    """Kernel (d): dx = weight * invstd * (g - sums[0] * inv_n - xhat *
-    sums[1] * inv_n) in x's type, channels_last."""
+               inv_n: float, act: str,
+               conv_bias: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel (d): (dx, dconv_bias). dx = weight * invstd * (g - sums[0] *
+    inv_n - xhat * sums[1] * inv_n) in x's type, channels_last;
+    dconv_bias, where a conv bias is given (else None), the per-channel
+    sum of that dx, summed in f32 and double and rounded to x's type."""
+    _check_conv_bias(x, conv_bias)
     pixels, c = _shape(x)
     _check_vectors(x, st, weight, bias, sums)
     _check_dy(x, dy)
     dx = torch.empty_like(x)
     vec = _vec(c, x, dy, dx)
+    blocks, chunk = _split(x, c, vec, SUMS_KIND, act)
+    part = dbias = None
+    if conv_bias is not None:
+        part = _scratch(x, c * blocks, c)
+        dbias = torch.empty_like(conv_bias)
     with torch.cuda.device(x.device):
         err = _lib().abcnet_bn_act_grad_apply(
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), _ptr(conv_bias),
             int(x.dtype == torch.bfloat16), vec, ACTS[act], pixels, c,
-            st.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            sums.data_ptr(), inv_n, stream_ptr(x))
+            blocks, chunk, st.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            sums.data_ptr(), inv_n, _ptr(part), _ptr(dbias), stream_ptr(x))
     _check(err, "backward apply")
     grad_apply.launches += 1
-    return dx
+    return dx, dbias
 
 
 def eval_apply(x: torch.Tensor, conv_bias: Optional[torch.Tensor],
@@ -353,7 +425,7 @@ def _plain_forward(x, weight, bias, eps, act, group):
 
 
 def _plain_backward(ctx, dy):
-    x, weight, bias, st = ctx.saved_tensors
+    x, weight, bias, st, _ = ctx.saved_tensors
     act, eps, group = ctx.act, ctx.eps, ctx.group
     if group is None:
         with torch.enable_grad():
@@ -385,25 +457,26 @@ def _plain_backward(ctx, dy):
 
 
 class _BnAct(torch.autograd.Function):
-    """Saves x (the conv output, in its own type), the weight and bias,
-    and the (3, C) rows mean, biased variance and invstd: nothing of
-    activation size in f32."""
+    """Saves x (the conv output without its bias, in its own type), the
+    weight, bias and conv bias, and the (3, C) rows mean, biased variance
+    and invstd: nothing of activation size in f32. The plain path takes
+    no conv bias (bn_act_plain adds it in front, under autograd)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, act, group, plain):
+    def forward(ctx, x, weight, bias, conv_bias, eps, act, group, plain):
         ctx.act, ctx.eps, ctx.group, ctx.plain = act, eps, group, plain
         ctx.n = None
         if plain:
             y, st, ctx.n = _plain_forward(x, weight, bias, eps, act, group)
         else:
             x = x.contiguous(memory_format=CHANNELS_LAST)
-            st = stats(x, eps)
+            st = stats(x, eps, conv_bias)
             if group is not None:
                 n, c, h, w = x.shape
                 mean, var, ctx.n = _pooled(n * h * w, st[0], st[1], group)
                 st = torch.stack([mean, var, torch.rsqrt(var + eps)])
-            y = apply(x, st, weight, bias, act)
-        ctx.save_for_backward(x, weight, bias, st)
+            y = apply(x, st, weight, bias, act, conv_bias)
+        ctx.save_for_backward(x, weight, bias, st, conv_bias)
         mean, var = st[0], st[1]
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -412,10 +485,10 @@ class _BnAct(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         if ctx.plain:
             dx, dw, db = _plain_backward(ctx, dy)
-            return dx, dw, db, None, None, None, None
-        x, weight, bias, st = ctx.saved_tensors
+            return dx, dw, db, None, None, None, None, None
+        x, weight, bias, st, conv_bias = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous(memory_format=CHANNELS_LAST)
-        sums = grad_sums(x, dy, st, weight, bias, ctx.act)
+        sums = grad_sums(x, dy, st, weight, bias, ctx.act, conv_bias)
         local = sums
         if ctx.group is None:
             inv_n = 1.0 / (x.numel() // x.shape[1])
@@ -424,8 +497,9 @@ class _BnAct(torch.autograd.Function):
             dist.all_reduce(sums, group=ctx.group)
             sums = sums / ctx.n
             inv_n = 1.0
-        dx = grad_apply(x, dy, st, weight, bias, sums, inv_n, ctx.act)
-        return dx, local[1], local[0], None, None, None, None
+        dx, dcb = grad_apply(x, dy, st, weight, bias, sums, inv_n, ctx.act,
+                             conv_bias)
+        return dx, local[1], local[0], dcb, None, None, None, None
 
 
 def _group(group):
@@ -434,37 +508,49 @@ def _group(group):
 
 
 def bn_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           eps: float, act: str, group=None
+           eps: float, act: str, group=None,
+           conv_bias: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(act(weight * xhat + bias) in x's type, batch mean, biased batch
-    variance) of NCHW `x` in train mode, xhat normalised with the batch
-    statistics in f32. `act`: "relu", "leaky_relu" (slope 0.01) or
-    "none". `group`: the process group of a data-parallel run (statistics
-    of the global batch). The mean and variance are not differentiable.
+    variance) of NCHW `x` + `conv_bias` in train mode, xhat normalised
+    with the batch statistics in f32. `conv_bias`: None, or the bias of
+    the conv that made x without it, C values of x's type, added in f32
+    and rounded to x's type; its gradient, this rank's per-channel sum of
+    dx in its type, flows back through autograd. `act`: "relu",
+    "leaky_relu" (slope 0.01) or "none". `group`: the process group of a
+    data-parallel run (statistics of the global batch). The mean and
+    variance are not differentiable.
 
     A CUDA tensor goes through the kernels, launched on its device, a CPU
     tensor through `bn_act_plain`; anything else raises."""
     if act not in ACTS:
         raise ValueError(f"bn_act: act {act!r} is none of {sorted(ACTS)}")
+    _check_conv_bias(x, conv_bias)
     if x.device.type == "cpu":
-        return bn_act_plain(x, weight, bias, eps, act, group)
+        return bn_act_plain(x, weight, bias, eps, act, group, conv_bias)
     if x.device.type != "cuda":
         raise ValueError(f"bn_act: unsupported device {x.device}")
-    return _BnAct.apply(x, weight, bias, eps, act, _group(group), False)
+    return _BnAct.apply(x, weight, bias, conv_bias, eps, act, _group(group),
+                        False)
 
 
 def bn_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                 eps: float, act: str, group: Optional[object] = None
+                 eps: float, act: str, group: Optional[object] = None,
+                 conv_bias: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of `bn_act`, on any device: the forward is the chain
-    `act(F.batch_norm(x.float(), zeros, zeros, weight, bias, True, 1.0,
-    eps)).to(x.dtype)` under no_grad (with a group: the pooled statistics
-    and the normalisation written out), the backward that chain again
-    with grad enabled and torch.autograd.grad (with a group: the two sums
-    all-reduced between the reduction and the apply)."""
+    """Plain version of `bn_act`, on any device: `x + conv_bias` in x's
+    type under autograd (which gives the conv bias its gradient), then the
+    chain `act(F.batch_norm(x.float(), zeros, zeros, weight, bias, True,
+    1.0, eps)).to(x.dtype)` under no_grad (with a group: the pooled
+    statistics and the normalisation written out), the backward that
+    chain again with grad enabled and torch.autograd.grad (with a group:
+    the two sums all-reduced between the reduction and the apply)."""
     if act not in ACTS:
         raise ValueError(f"bn_act: act {act!r} is none of {sorted(ACTS)}")
-    return _BnAct.apply(x, weight, bias, eps, act, _group(group), True)
+    _check_conv_bias(x, conv_bias)
+    if conv_bias is not None:
+        x = x + conv_bias[:, None, None]
+    return _BnAct.apply(x, weight, bias, None, eps, act, _group(group), True)
 
 
 def bn_act_eval(x: torch.Tensor, conv_bias: Optional[torch.Tensor],

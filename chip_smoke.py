@@ -20,10 +20,14 @@ per phase:
      below-threshold maps, on maps that try the seams between the
      kernel's bands of rows, K = 128 and 160, on an odd shape and on
      K = H*W, f32 and bf16, every cluster size, and both heatmaps in one
-     launch against two plain calls; bn_act, the train-mode BatchNorm ->
-     activation -> cast, forward and backward against bn_act_plain at
-     the inc1, down5, head and fused-head-bank shapes of a batch of 64,
-     bf16 and f32, each activation, within stated tolerances;
+     launch against two plain calls; bn_act, the train-mode conv bias ->
+     BatchNorm -> activation -> cast, forward and backward against
+     bn_act_plain at the inc1, down5, head and fused-head-bank shapes of
+     a batch of 64, bf16 and f32, each activation, without and with a
+     conv bias (its gradient within a stated absolute bound, and on
+     gradients that do not cancel against a float64 sum), within stated
+     tolerances, and four of them on four streams at once bit-equal to
+     each alone;
      bn_act_eval, serving's conv bias -> BatchNorm -> activation -> cast,
      against bn_act_eval_plain at every BatchNorm shape of sparse serving
      at batch 64 and the fused bank's, bf16 and f32, with the snapshot's
@@ -41,7 +45,9 @@ per phase:
      shapes (median of 25 CUDA-event timings, each launched behind a
      sleep kernel so the host's launch overhead is not timed), the bound
      from the bytes each must move or the integer instructions it must
-     run (bn_act and bn_act_eval at the inc1 shape), an empty kernel in
+     run (bn_act with the conv bias, beside the chain it replaces, and
+     bn_act_eval at the inc1 shape; line bn_act_shapes: each bn_act
+     kernel at every BatchNorm shape of the train step), an empty kernel in
      the NMS kernel's launch shape, the NMS
      kernel at every cluster size, a per-stage breakdown of one batch,
      the serving loop's img/s at batch 64 on fresh input, and a
@@ -60,12 +66,17 @@ per phase:
        after; then the weights go through save_snapshot/load_snapshot
        and the serving pipeline decodes the fixture with them;
      - train_times: CUDA-event times per stage of one step, img/s of
-       the fit loop, peak memory, a torch.profiler operator table;
+       the fit loop, peak memory, a torch.profiler operator table; then
+       the step with the conv bias folded into bn_act against the
+       routing before the fold (the conv adds its bias, its gradient a
+       separate sum): step ms and the add_ and sum rows of each trace;
      - bn_act_step: one train_step at batch 64 from the snapshot through
-       bn_act's kernels and through bn_act_plain, same batch and generator
-       seed: in f32 (TF32 off) losses per term 1e-3 and the gradient tree
-       1e-2 relative L2; in bf16 within the floor the run measures (the
-       plain step against itself on the reversed batch);
+       bn_act's kernels and through bn_act_plain (which adds the conv
+       bias in front: the routing before the fold, bit for bit), same
+       batch and generator seed: in f32 (TF32 off) losses per term 1e-3
+       and the gradient tree 1e-2 relative L2; in bf16 within the floor
+       the run measures (the plain step against itself on the reversed
+       batch); the conv bias handed to every BatchNorm on both;
   7. device_guard (run right after the build): every kernel wrapper on
      the last visible GPU while GPU 0 is current, bit-equal to its plain
      version, bn_act within its tolerances (on a one-GPU machine it says
@@ -241,12 +252,41 @@ BN_ACT_SHAPES = {"inc1": (BATCH, 16, 512, 512),
                  "head_bank": (BATCH, 1024, 128, 128)}
 BN_STAT_REL, BN_Y_REL, BN_DPARAM_REL, BN_TIE_REL = 1e-5, 1e-6, 1e-3, 1e-5
 BN_DX_REL = {"bfloat16": 1e-2, "float32": 1e-4}
+# Every case runs without and with a conv bias (random, of x's type). The
+# conv bias gradient through a batch-statistics BatchNorm is 0 in exact
+# arithmetic, so both sides return rounding residue: it is held to an
+# absolute bound per channel, BN_DCB_SUM_REL[type] * sum|dx_plain|. The
+# two sides' dx elements are each x's type's rounding of f32 values a few
+# f32 ulps apart: 2u apart at most (u = 2^-8 in bf16, 2^-24 in f32); each
+# side's f32 sum of its dx is within L * 2^-24 * sum|dx| of the exact one,
+# L its longest chain of serial additions, which 2^-13 covers for both
+# together (L <= 4096 a side; the kernel's is at most chunk / rows + 8,
+# 339 at batch 64); each side's final rounding to x's type adds at most u
+# * |its sum| <= u * sum|dx|. Sum: 4u + 2^-13 (4u covers the rounding
+# twice over, f32's 4 * 2^-24 the ulps of the f32 values).
+# That bound cannot see a lost block partial (a chunk's sum of dx is far
+# below it), so (d)'s sum is also held where it does not cancel: with the
+# backward's two sums replaced by zeros and dy moved by +1, dx = gamma *
+# invstd * g with g of one sign where the activation passes it, and the
+# kernel's bias gradient is held to the float64 sum of the dx it wrote,
+# within u * |that sum| + 2^-13 * sum|dx| (its final rounding and its f32
+# chains, as above); a lost or doubled partial of one of P <= 1056 chunks
+# moves the sum by ~1/P of it, which the f32 cases see (u = 2^-24) and
+# the bf16 ones where P < 256 (at batch 64 down5, head and the head
+# bank, not inc1): each case reports P and whether its bound is below 1/P
+# of every channel's sum, and each type needs one case that is.
+BN_DCB_SUM_REL = {"bfloat16": 4 * 2 ** -8 + 2 ** -13,
+                  "float32": 4 * 2 ** -24 + 2 ** -13}
+BN_DCB_CHAIN_REL = 2 ** -13
+BN_UNIT_ROUNDOFF = {"bfloat16": 2 ** -8, "float32": 2 ** -24}
 # The least f32 operations an element of bn_act's forward and backward:
 # the statistics 3 (subtract, multiply-add, add), the apply 3 (subtract,
 # multiply-add, activation), the backward sums 7 (the pre-activation 2,
 # the mask 1, xhat 2, two accumulations), the backward apply 6 (the
-# pre-activation 2, the mask 1, xhat 1, two multiply-adds).
-BN_ACT_OPS_PER_ELEMENT = 3 + 3 + 7 + 6
+# pre-activation 2, the mask 1, xhat 1, two multiply-adds), the conv bias
+# 3 (its add in the forward and in the backward, the accumulation of its
+# gradient).
+BN_ACT_OPS_PER_ELEMENT = 3 + 3 + 7 + 6 + 3
 # bn_act_step: one train_step at batch 64 from the snapshot through the
 # kernels and through bn_act_plain, same batch and generator seed. f32
 # (TF32 off): losses per term 1e-3 relative, the gradient tree 1e-2
@@ -261,6 +301,22 @@ BN_ACT_OPS_PER_ELEMENT = 3 + 3 + 7 + 6
 # floor's, its tree within 2x.
 BN_STEP_LOSS_REL, BN_STEP_GRAD_REL = 1e-3, 1e-2
 BN_STEP_FLOOR_LOSS, BN_STEP_FLOOR_GRAD = 3.0, 2.0
+# The train step's BatchNorms by shape at batch 64 (channels, side,
+# activation, how many of the production UNet's 34 have it), where
+# kernel_times times each kernel of bn_act (line `bn_act_shapes`).
+BN_STEP_SHAPES = {"inc1_inc2": (16, 512, "relu", 4),
+                  "down1": (32, 256, "relu", 2),
+                  "down2_inc3": (64, 128, "relu", 4),
+                  "down3_up2": (128, 64, "relu", 4),
+                  "down4_up1": (256, 32, "relu", 4),
+                  "down5": (512, 16, "relu", 2),
+                  "up3_dconv": (128, 128, "relu", 6),
+                  "heads": (128, 128, "leaky_relu", 8)}
+# Least bytes of each, in units of x's size: (a) reads x; (b) reads x and
+# writes y; (c) reads x and dy; (d) reads x and dy and writes dx; the op
+# (all four) reads x, writes y, reads x and dy, writes dx.
+BN_STEP_BYTES = {"a_stats": 1, "b_apply": 2, "c_grad_sums": 2,
+                 "d_grad_apply": 3, "op": 5}
 # bn_act_eval (ops/bn_act.py, csrc/bn_act.cu kernel (e)): eval-mode conv
 # bias -> BatchNorm -> activation -> cast. Its launches in one eval forward,
 # one a BatchNorm the forward runs: the production UNet's sparse serving
@@ -674,13 +730,22 @@ def bn_act_inputs(torch, shape, dtype, gen, dev="cuda"):
     return x, dy, weight, bias
 
 
-def bn_act_grads(torch, fn, x, dy, weight, bias, act):
-    """(y, mean, var, dx, dweight, dbias) of fn = bn_act or
-    bn_act_plain."""
-    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, weight, bias))
-    y, mean, var = fn(xg, wg, bg, BN_EPS, act)
-    dx, dw, db = torch.autograd.grad(y, (xg, wg, bg), dy)
-    return y.detach(), mean, var, dx, dw, db
+def bn_conv_bias(torch, c, dtype, gen, dev="cuda"):
+    """A random conv bias of `c` channels in `dtype`, of the size of the
+    per-channel offsets bn_act_inputs gives x."""
+    return (torch.randn(c, device=dev, generator=gen) * 1.5).to(dtype)
+
+
+def bn_act_grads(torch, fn, x, dy, weight, bias, act, conv_bias=None):
+    """(y, mean, var, dx, dweight, dbias, dconv_bias or None) of fn =
+    bn_act or bn_act_plain."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in (x, weight, bias, conv_bias) if t is not None]
+    cb = leaves[3] if conv_bias is not None else None
+    y, mean, var = fn(*leaves[:3], BN_EPS, act, None, cb)
+    grads = torch.autograd.grad(y, leaves, dy)
+    dcb = grads[3] if conv_bias is not None else None
+    return (y.detach(), mean, var, *grads[:3], dcb)
 
 
 def _rel_l2(got, want):
@@ -697,7 +762,7 @@ def bn_act_stats64(torch, x):
             torch.cat([v for v, _ in parts]))
 
 
-def bn_act_masks(torch, x, w, b):
+def bn_act_masks(torch, x, w, b, conv_bias=None):
     """(where the kernels' and the plain version's pre-activations agree
     in sign, the number of elements where they do not, the largest |pre|
     among those over the largest |pre|): the "none" outputs of both, in
@@ -705,8 +770,8 @@ def bn_act_masks(torch, x, w, b):
     from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
 
     with torch.no_grad():
-        pre_k = bn_act(x, w, b, BN_EPS, "none")[0]
-        pre_p = bn_act_plain(x, w, b, BN_EPS, "none")[0]
+        pre_k = bn_act(x, w, b, BN_EPS, "none", None, conv_bias)[0]
+        pre_p = bn_act_plain(x, w, b, BN_EPS, "none", None, conv_bias)[0]
         agree = (pre_k > 0) == (pre_p > 0)
         del pre_k
         top = float(pre_p.abs().max())
@@ -717,9 +782,9 @@ def bn_act_masks(torch, x, w, b):
 def compare_bn_act(torch, got, want, dtype, act, stats64, masks=None):
     """The errors of the kernels' (y, mean, var, dx, dw, db) against the
     plain version's, and whether each is within its tolerance (see
-    BN_EPS). `masks`: bn_act_masks of x, for f32."""
-    y, mean, var, dx, dw, db = got
-    yp, mp, vp, dxp, dwp, dbp = want
+    BN_EPS, BN_DCB_SUM_REL). `masks`: bn_act_masks of x, for f32."""
+    y, mean, var, dx, dw, db, dcb = got
+    yp, mp, vp, dxp, dwp, dbp, dcbp = want
     rms = (mp.square() + vp).sqrt()
     mean_err = float(((mean - mp).abs() / rms).max())
     var_err = float(((var - vp).abs() / vp).max())
@@ -760,12 +825,100 @@ def compare_bn_act(torch, got, want, dtype, act, stats64, masks=None):
             ties_ok = tie <= BN_TIE_REL
     res.update(y_within=y_ok, masks_differ_only_at_ties=ties_ok,
                dweight_rel_l2=_rel_l2(dw, dwp), dbias_rel_l2=_rel_l2(db, dbp))
+    dcb_ok = True
+    if dcbp is not None:
+        bound = BN_DCB_SUM_REL[name] * _abs_channel_sums(torch, dxp)
+        diff = (dcb.double() - dcbp.double()).abs()
+        dcb_ok = dcb.dtype == dcbp.dtype and bool((diff <= bound).all())
+        res.update(dconv_bias_max_abs_err=float(diff.max()),
+                   dconv_bias_bound_min=float(bound.min()),
+                   dconv_bias_plain_max_abs=float(dcbp.abs().max()),
+                   dconv_bias_within=dcb_ok)
     res["ok"] = (mean_err <= BN_STAT_REL and var_err <= BN_STAT_REL and y_ok
-                 and ties_ok
+                 and ties_ok and dcb_ok
                  and res["dx_rel_l2"] <= BN_DX_REL[name]
                  and res["dweight_rel_l2"] <= BN_DPARAM_REL
                  and res["dbias_rel_l2"] <= BN_DPARAM_REL)
     return res
+
+
+def _abs_channel_sums(torch, t):
+    """Per-channel sums of |t| in float64, a block of channels at a
+    time."""
+    return torch.cat([t[:, c:c + 64].double().abs().sum((0, 2, 3))
+                      for c in range(0, t.shape[1], 64)])
+
+
+def check_dconv_bias_sum(torch, x, dy, w, b, cb, act):
+    """Kernel (d)'s conv bias gradient where it does not cancel: the
+    backward's two sums replaced by zeros and dy moved by +1 (dx = gamma *
+    invstd * g, g > 0 where the activation passes it), against the
+    float64 sum of the dx the kernel wrote (see BN_DCB_SUM_REL). Also
+    whether the bound would see one of the launch's P block partials
+    lost or doubled: its largest share of a channel's sum below 1/P."""
+    from abcnet_tpu_torch.ops import bn_act as ops
+
+    name = str(x.dtype)[6:]
+    c = x.shape[1]
+    P, _ = ops._split(x, c, ops._vec(c, x, dy), ops.SUMS_KIND, act)
+    with torch.no_grad():
+        st = ops.stats(x, BN_EPS, cb)
+        zeros = torch.zeros(2, x.shape[1], device=x.device)
+        dy = dy + 1
+        dx, dcb = ops.grad_apply(x, dy, st, w, b, zeros, 1.0, act, cb)
+        del dy
+        want = torch.cat([dx[:, c:c + 64].double().sum((0, 2, 3))
+                          for c in range(0, x.shape[1], 64)])
+        bound = (BN_UNIT_ROUNDOFF[name] * want.abs()
+                 + BN_DCB_CHAIN_REL * _abs_channel_sums(torch, dx))
+        diff = (dcb.double() - want).abs()
+    ok = bool((diff <= bound).all())
+    bound_share = float((bound / want.abs()).max())
+    return {"ok": ok, "max_abs_err": float(diff.max()),
+            "max_rel_err": float((diff / want.abs()).max()),
+            "max_abs": float(want.abs().max()), "partials": P,
+            "bound_share_max": bound_share,
+            "sees_one_partial": bound_share < 1 / P}
+
+
+def check_bn_act_streams(torch, n=4, shape=(4, 64, 32, 32)):
+    """n bn_acts, forward and backward with a conv bias, each on a stream
+    of its own and released together (every stream waits on one event
+    behind a sleep kernel, so their reductions' blocks share the card),
+    against each run alone: bit-equal, since each launch merges its own
+    partials through its own tickets in a fixed order. Alternates bf16
+    and f32 and the activations."""
+    from abcnet_tpu_torch.ops.bn_act import bn_act
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    acts = ("relu", "leaky_relu", "none")
+    runs = []
+    for i in range(n):
+        dt = (torch.bfloat16, torch.float32)[i % 2]
+        x, dy, w, b = bn_act_inputs(torch, shape, dt, gen)
+        runs.append((x, dy, w, b, acts[i % 3],
+                     bn_conv_bias(torch, shape[1], dt, gen)))
+    alone = [bn_act_grads(torch, bn_act, *r) for r in runs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in runs]
+    gate = torch.cuda.Stream()
+    equal = []
+    for _ in range(3):
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(20 * SLEEP_CYCLES)
+            opened = gate.record_event()
+        together = []
+        for st, r in zip(streams, runs):
+            st.wait_stream(torch.cuda.current_stream())
+            st.wait_event(opened)
+            with torch.cuda.stream(st):
+                together.append(bn_act_grads(torch, bn_act, *r))
+        torch.cuda.synchronize()
+        equal.append(all(torch.equal(g, a) for got, want in zip(together, alone)
+                         for g, a in zip(got, want)))
+    return {"case": "streams", "shape": list(shape), "streams": n,
+            "rounds": len(equal), "ok": all(equal),
+            "bit_equal_to_alone": equal}
 
 
 def check_bn_act(torch):
@@ -781,24 +934,43 @@ def check_bn_act(torch):
             for dtype in (torch.bfloat16, torch.float32)]
     for name, shape, dtype in runs:
         x, dy, w, b = bn_act_inputs(torch, shape, dtype, gen)
-        stats64 = bn_act_stats64(torch, x)
-        masks = bn_act_masks(torch, x, w, b) \
-            if dtype == torch.float32 else None
-        for act in sorted(ACTS):
-            got = bn_act_grads(torch, bn_act, x, dy, w, b, act)
-            want = bn_act_grads(torch, bn_act_plain, x, dy, w, b, act)
-            res = compare_bn_act(torch, got, want, dtype, act, stats64,
-                                 masks)
-            res["channels_last"] = all(
-                t.stride() == x.stride() for t in (got[0], got[3]))
-            res["ok"] = res["ok"] and res["channels_last"]
-            del got, want
-            err = max(err, res["y_max_abs_err"])
-            cases.append({"case": name, "shape": list(shape),
-                          "dtype": str(dtype)[6:], "act": act, **res})
-        del x, dy, masks
+        cb = bn_conv_bias(torch, shape[1], dtype, gen)
+        for conv_bias in (None, cb):
+            with torch.no_grad():
+                xb = x if conv_bias is None else x + conv_bias[:, None, None]
+                stats64 = bn_act_stats64(torch, xb)
+                del xb
+            masks = bn_act_masks(torch, x, w, b, conv_bias) \
+                if dtype == torch.float32 else None
+            for act in sorted(ACTS):
+                got = bn_act_grads(torch, bn_act, x, dy, w, b, act, conv_bias)
+                want = bn_act_grads(torch, bn_act_plain, x, dy, w, b, act,
+                                    conv_bias)
+                res = compare_bn_act(torch, got, want, dtype, act, stats64,
+                                     masks)
+                res["channels_last"] = all(
+                    t.stride() == x.stride() for t in (got[0], got[3]))
+                res["ok"] = res["ok"] and res["channels_last"]
+                del got, want
+                err = max(err, res["y_max_abs_err"])
+                cases.append({"case": name, "shape": list(shape),
+                              "dtype": str(dtype)[6:], "act": act,
+                              "conv_bias": conv_bias is not None, **res})
+            del masks
+            torch.cuda.empty_cache()
+        res = check_dconv_bias_sum(torch, x, dy, w, b, cb, "relu")
+        cases.append({"case": f"{name}_dconv_bias_sum", "shape": list(shape),
+                      "dtype": str(dtype)[6:], "act": "relu", **res})
+        del x, dy
         torch.cuda.empty_cache()
+    cases.append(check_bn_act_streams(torch))
     torch.cuda.synchronize()
+    # each type has a case whose bound sees one lost or doubled partial
+    for dt in ("bfloat16", "float32"):
+        if not any(c.get("sees_one_partial") for c in cases
+                   if c.get("dtype") == dt):
+            cases.append({"case": f"dconv_bias_sum_{dt}_sees_a_partial",
+                          "dtype": dt, "ok": False})
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"bn_act differs from bn_act_plain: {bad[:4]}")
@@ -1060,7 +1232,10 @@ def phase_kernels(torch, fixture):
                      "of max|y|, masks differ only at ties (|pre| <= "
                      f"{BN_TIE_REL} of max); dx {BN_DX_REL} relative L2 "
                      "(f32: where the masks agree); dweight, dbias "
-                     f"{BN_DPARAM_REL}",
+                     f"{BN_DPARAM_REL}; with a conv bias its gradient "
+                     f"within {BN_DCB_SUM_REL} x sum|dx| a channel, and "
+                     "where it does not cancel within u x |its float64 "
+                     f"sum| + {BN_DCB_CHAIN_REL} x sum|dx|",
          bn_act_eval_cases=eval_cases, bn_act_eval_max_abs_err=eval_err,
          bn_act_eval_gate="bit-equal to bn_act_eval_plain, or else within "
                           "one bf16 ulp (f32: two ulps) with the differing "
@@ -1185,11 +1360,15 @@ def stage_breakdown(torch, model, images_u8):
 
 
 def bn_act_row(torch, launches, errs):
-    """The kernels-line row of bn_act at the inc1 shape, bf16, relu: the
-    forward and backward through the kernels, through bn_act_plain, and
-    through the chain they replaced (.float() -> F.batch_norm -> relu ->
-    .to(bf16) and its autograd backward); the bound from the bytes the op
-    must move (read x, write y; read x and dy, write dx)."""
+    """The kernels-line row of bn_act at the inc1 shape, bf16, relu, with
+    a conv bias: the forward and backward through the kernels (conv bias
+    gradient included), through bn_act_plain, through the chain the fold
+    replaced (the bias add, the four kernels without a bias, the bias
+    gradient's sum, by autograd) and without a conv bias, timed in turns
+    (each path, then each again in reverse order), and through the stock
+    chain before the kernels (the bias add, .float() -> F.batch_norm ->
+    relu -> .to(bf16), autograd); the bound from the bytes the op must
+    move (read x, write y; read x and dy, write dx)."""
     import torch.nn.functional as F
 
     from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
@@ -1197,25 +1376,38 @@ def bn_act_row(torch, launches, errs):
     shape = BN_ACT_SHAPES["inc1"]
     gen = torch.Generator(device="cuda").manual_seed(12)
     x, dy, w, b = bn_act_inputs(torch, shape, torch.bfloat16, gen)
-    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+    cb = bn_conv_bias(torch, shape[1], torch.bfloat16, gen)
+    xg, wg, bg, cbg = (t.detach().requires_grad_(True)
+                       for t in (x, w, b, cb))
 
     def through(fn):
         return lambda: torch.autograd.grad(
-            fn(xg, wg, bg, BN_EPS, "relu")[0], (xg, wg, bg), dy)
+            fn(xg, wg, bg, BN_EPS, "relu", None, cbg)[0],
+            (xg, wg, bg, cbg), dy)
 
-    def chain(xx, ww, bb, eps, act):
-        c = xx.shape[1]
-        zeros = torch.zeros(c, device=xx.device)
-        out = F.batch_norm(xx.float(), zeros, torch.zeros_like(zeros), ww, bb,
+    def unfolded(xx, ww, bb, eps, act, group, cc):
+        return bn_act(xx + cc[:, None, None], ww, bb, eps, act)
+
+    def stock(xx, ww, bb, eps, act, group, cc):
+        xb = xx + cc[:, None, None]
+        zeros = torch.zeros(xb.shape[1], device=xb.device)
+        out = F.batch_norm(xb.float(), zeros, torch.zeros_like(zeros), ww, bb,
                            True, 1.0, eps)
-        return (F.relu(out).to(xx.dtype),)
+        return (F.relu(out).to(xb.dtype),)
 
     with torch.no_grad():
         forward_ms = device_ms(torch, lambda: bn_act(x, w, b, BN_EPS,
-                                                     "relu"))
-    ms = device_ms(torch, through(bn_act))
+                                                     "relu", None, cb))
+    paths = {"fold": through(bn_act), "unfolded": through(unfolded),
+             "without_conv_bias": lambda: torch.autograd.grad(
+                 bn_act(xg, wg, bg, BN_EPS, "relu")[0], (xg, wg, bg), dy)}
+    turns = {k: [] for k in paths}
+    for path in (*paths, *reversed(paths)):
+        turns[path].append(device_ms(torch, paths[path]))
+    ms = sum(turns["fold"]) / 2
+    replaced_ms = sum(turns["unfolded"]) / 2
     plain_ms = device_ms(torch, through(bn_act_plain))
-    replaced_ms = device_ms(torch, through(chain))
+    stock_ms = device_ms(torch, through(stock))
     nbytes = x.numel() * x.element_size() * (2 + 3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = x.numel() * BN_ACT_OPS_PER_ELEMENT / F32_OPS_PER_S * 1e3
@@ -1224,17 +1416,80 @@ def bn_act_row(torch, launches, errs):
     return {
         "name": "bn_act", "route": "cuda",
         "source": "abcnet_tpu_torch/csrc/bn_act.cu",
-        "replaces": "abcnet_tpu/models/unet.py:41-48 (the XLA fusion of "
-                    "BatchNorm -> relu -> astype; no Pallas counterpart)",
+        "replaces": "abcnet_tpu/models/unet.py:40-48 (the XLA fusion of "
+                    "the conv bias, BatchNorm, relu and astype; no Pallas "
+                    "counterpart)",
         "launches": launches["bn_act"], "max_abs_err": errs["bn_act"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "operations_type": "f32",
-        "shape": f"{shape} bf16, relu: forward and backward (4 kernels); "
-                 "launches counted over the train_bf16 phase",
-        "replaced_ms": replaced_ms, "forward_ms": forward_ms,
-        "library": "none: no single PyTorch call normalizes with batch "
-                   "statistics, activates and casts"}
+        "shape": f"{shape} bf16, relu, conv bias: forward and backward (4 "
+                 "kernels); launches counted over the train_bf16 phase",
+        "replaced_ms": replaced_ms, "turns_ms": turns,
+        "replaced": "the bias add, the four kernels without a conv bias, "
+                    "the bias gradient's sum",
+        "stock_chain_ms": stock_ms, "forward_ms": forward_ms,
+        "without_conv_bias_ms": sum(turns["without_conv_bias"]) / 2,
+        "library": "none: no single PyTorch call adds a bias, normalizes "
+                   "with batch statistics, activates and casts"}
+
+
+def bn_act_step_shapes(torch):
+    """bn_act at each BatchNorm shape of the train step (BN_STEP_SHAPES,
+    bf16, channels_last, a random conv bias): each kernel alone with the
+    conv bias ((d) with its gradient), the op forward and backward through
+    autograd with the conv bias folded in (`op`), without a conv bias, and
+    what the fold replaced (the bias add, the op without a conv bias, the
+    bias gradient's sum), beside each one's least bytes over HBM_BYTES_PER_S
+    (BN_STEP_BYTES); `per_step_ms` sums count x ms over the shapes."""
+    from abcnet_tpu_torch.ops import bn_act as ops
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows, per_step = {}, {}
+    for name, (c, side, act, count) in BN_STEP_SHAPES.items():
+        x, dy, w, b = bn_act_inputs(torch, (BATCH, c, side, side),
+                                    torch.bfloat16, gen)
+        cb = bn_conv_bias(torch, c, torch.bfloat16, gen)
+        st = ops.stats(x, BN_EPS, cb)
+        sums = ops.grad_sums(x, dy, st, w, b, act, cb)
+        inv_n = 1.0 / (x.numel() // c)
+        xg, wg, bg, cbg = (t.detach().requires_grad_(True)
+                           for t in (x, w, b, cb))
+        with torch.no_grad():
+            row = {
+                "a_stats": device_ms(torch, lambda: ops.stats(x, BN_EPS, cb)),
+                "b_apply": device_ms(
+                    torch, lambda: ops.apply(x, st, w, b, act, cb)),
+                "c_grad_sums": device_ms(
+                    torch, lambda: ops.grad_sums(x, dy, st, w, b, act, cb)),
+                "d_grad_apply": device_ms(
+                    torch, lambda: ops.grad_apply(x, dy, st, w, b, sums,
+                                                  inv_n, act, cb))}
+        row["op"] = device_ms(torch, lambda: torch.autograd.grad(
+            ops.bn_act(xg, wg, bg, BN_EPS, act, None, cbg)[0],
+            (xg, wg, bg, cbg), dy))
+        row["op_without_conv_bias"] = device_ms(
+            torch, lambda: torch.autograd.grad(
+                ops.bn_act(xg, wg, bg, BN_EPS, act)[0], (xg, wg, bg), dy))
+        row["unfolded"] = device_ms(torch, lambda: torch.autograd.grad(
+            ops.bn_act(xg + cbg[:, None, None], wg, bg, BN_EPS, act)[0],
+            (xg, wg, bg, cbg), dy))
+        nbytes = x.numel() * x.element_size()
+        row["bound_ms"] = {k: v * nbytes / HBM_BYTES_PER_S * 1e3
+                           for k, v in BN_STEP_BYTES.items()}
+        row.update(channels=c, side=side, act=act, count=count)
+        rows[name] = row
+        for k in ("op", "op_without_conv_bias", "unfolded"):
+            per_step[k] = per_step.get(k, 0.0) + count * row[k]
+        per_step["bound"] = per_step.get("bound", 0.0) + \
+            count * row["bound_ms"]["op"]
+        del x, dy, xg, st, sums
+        torch.cuda.empty_cache()
+    emit("bn_act_shapes", ok=True, batch=BATCH, shapes=rows,
+         per_step_ms=per_step,
+         batchnorms=sum(v[3] for v in BN_STEP_SHAPES.values()),
+         note="bf16, channels_last, conv bias; medians of "
+              f"{REPS} CUDA-event timings, each behind a sleep kernel")
 
 
 def bn_act_eval_row(torch, launches, errs):
@@ -1356,6 +1611,7 @@ def phase_times(torch, fixture, model, run, launches, errs):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "operations_type": ops_type, "shape": shape})
     kernels.append(bn_act_row(torch, launches, errs))
+    bn_act_step_shapes(torch)
     kernels.append(bn_act_eval_row(torch, launches, errs))
 
     dense = (torch.randn(BATCH, 128, 128, device="cuda",
@@ -1718,7 +1974,8 @@ def phase_train_times(torch, samples, state, cfg, kernels):
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us, ops, _ = trace_summary(prof, n_trace)
     noise = next(k for k in kernels if k["name"] == "unpack_noise")
-    emit("train_times", ok=True, batch=BATCH, stages_ms=stages,
+    fold = fold_against_unfolded(torch, state, batch)
+    emit("train_times", ok=fold["ok"], batch=BATCH, stages_ms=stages,
          fit_loop_steps=more, fit_loop_img_per_s=more * BATCH / loop_s,
          fit_loop_ms_per_step=loop_s / more * 1e3,
          peak_mem_gib=peak_gib,
@@ -1731,15 +1988,92 @@ def phase_train_times(torch, samples, state, cfg, kernels):
          device_busy_share=busy_us / wall_us if busy_us else None,
          device_ms_per_step=busy_us / 1e3 / n_trace,
          top_ops_device_ms_per_step=dict(ops[:16]),
+         conv_bias_fold=fold,
          note="stages: CUDA events inside one step, median of 5; fit loop: "
               "host feed included, metrics step every 5th step; trace: 3 "
-              "train_steps on one resident batch")
+              "train_steps on one resident batch; conv_bias_fold: the step "
+              "with the conv bias folded into bn_act (the main path) "
+              "against the routing before the fold, in turns")
+    if not fold["ok"]:
+        raise AssertionError(f"the conv bias fold: {fold}")
+
+
+def _unfolded_routing(bn, x):
+    """models.unet._folds_conv_bias before the train-mode fold: the conv
+    keeps its bias in train mode (ATen adds it after cuDNN's conv and
+    sums its gradient in a pass of its own)."""
+    return not bn.training and x.device.type == "cuda"
+
+
+def fold_against_unfolded(torch, state, batch, n=3):
+    """train_step with the conv bias folded into bn_act (the main path)
+    and with the routing before the fold (`_unfolded_routing`), on one
+    resident batch: the step's CUDA-event ms, median of n, in turns
+    (fold, unfolded, unfolded, fold), and a trace of n steps of each:
+    ms and calls a step of the `aten::add_` and `aten::sum` rows. Gate:
+    the fold runs at least one add_ and one sum fewer a BatchNorm of the
+    model."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from abcnet_tpu_torch.models import unet
+    from abcnet_tpu_torch.models.unet import BatchNorm
+    from abcnet_tpu_torch.train import trainer
+
+    folds = unet._folds_conv_bias
+    routing = {"fold": folds, "unfolded": _unfolded_routing}
+
+    def step_ms():
+        out = []
+        for i in range(n + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            trainer.train_step(state, batch, i, with_metrics=False)
+            ev[1].record()
+            torch.cuda.synchronize()
+            if i:
+                out.append(ev[0].elapsed_time(ev[1]))
+        return float(np.median(out))
+
+    res = {"step_ms": {"fold": [], "unfolded": []}}
+    try:
+        for path in ("fold", "unfolded", "unfolded", "fold"):
+            unet._folds_conv_bias = routing[path]
+            res["step_ms"][path].append(step_ms())
+        for path in ("fold", "unfolded"):
+            unet._folds_conv_bias = routing[path]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(n):
+                    trainer.train_step(state, batch, i, with_metrics=False)
+                torch.cuda.synchronize()
+            rows = {a.key: a for a in prof.key_averages()
+                    if a.device_type == DeviceType.CPU}
+            for op in ("aten::add_", "aten::sum"):
+                a = rows.get(op)
+                res.setdefault(op, {})[path] = {
+                    "device_ms_per_step": a.self_device_time_total / 1e3 / n
+                    if a else 0.0,
+                    "calls_per_step": a.count / n if a else 0.0}
+    finally:
+        unet._folds_conv_bias = folds
+    n_bn = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+    res["batchnorms"] = n_bn
+    res["fewer_calls_per_step"] = {
+        op: res[op]["unfolded"]["calls_per_step"]
+        - res[op]["fold"]["calls_per_step"]
+        for op in ("aten::add_", "aten::sum")}
+    res["ok"] = all(v >= n_bn for v in res["fewer_calls_per_step"].values())
+    return res
 
 
 def _bn_step(torch, host, path, dtype=None, drop=True, amount=0.2):
     """One train_step at batch 64 from the snapshot, its BatchNorms through
     bn_act's kernels or through bn_act_plain (the name models.unet calls
-    patched): (total, losses, gradients, bn_act launches, peak GiB)."""
+    patched; it adds the conv bias in front, so the plain step is the
+    routing before the fold bit for bit): (total, losses, gradients,
+    bn_act launches, conv bias hand-offs, peak GiB)."""
     from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
     from abcnet_tpu_torch.models import unet
     from abcnet_tpu_torch.models.weights import load_snapshot
@@ -1755,8 +2089,14 @@ def _bn_step(torch, host, path, dtype=None, drop=True, amount=0.2):
     torch.cuda.reset_peak_memory_stats()
     drop_was = unet.OutConv.DROP
     unet.OutConv.DROP = drop_was if drop else 0.0
-    if path == "plain":
-        unet.bn_act = bn_act.bn_act_plain
+    op = bn_act.bn_act_plain if path == "plain" else bn_act.bn_act
+    handed = []
+
+    def handing(x, weight, bias, eps, act, group=None, conv_bias=None):
+        handed.append(conv_bias is not None)
+        return op(x, weight, bias, eps, act, group, conv_bias)
+
+    unet.bn_act = handing
     reset_launches()
     try:
         _, total, losses, _ = trainer.train_step(state, batch, rng=0,
@@ -1774,6 +2114,7 @@ def _bn_step(torch, host, path, dtype=None, drop=True, amount=0.2):
            "launches": read_launches(),
            "expect_bn": train_bn_launches(model, 1) if path == "kernels"
            else 0,
+           "conv_bias_handed": sum(handed), "batchnorms": len(handed),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     del state, model, batch
     torch.cuda.empty_cache()
@@ -1828,6 +2169,8 @@ def phase_bn_act_step(torch, samples):
     launches_ok = all(r["launches"]["bn_act"] == r["expect_bn"]
                       and r["launches"]["bn_act_eval"] == 0
                       for r in runs)
+    handed_ok = all(r["conv_bias_handed"] == r["batchnorms"] == 34
+                    for r in runs)
     gates = {
         "f32_losses": max(f32_loss.values()) <= BN_STEP_LOSS_REL,
         "f32_grad_tree": f32_tree <= BN_STEP_GRAD_REL,
@@ -1836,6 +2179,7 @@ def phase_bn_act_step(torch, samples):
         "bf16_grad_tree_within_floor": bf_tree
         <= BN_STEP_FLOOR_GRAD * fl_tree,
         "bn_act_launches": launches_ok,
+        "conv_bias_handed_to_every_batchnorm": handed_ok,
     }
     ok = all(gates.values())
     emit("bn_act_step", ok=ok, batch=BATCH, gates=gates,
@@ -1848,12 +2192,15 @@ def phase_bn_act_step(torch, samples):
                                    for k, v in bf16.items()},
                           "f32": {k: v["launches"]["bn_act"]
                                   for k, v in f32.items()}},
+         conv_bias_handed={k: v["conv_bias_handed"]
+                           for k, v in bf16.items()},
          gate=f"f32 (TF32 off): losses <= {BN_STEP_LOSS_REL} relative per "
               f"term, gradient tree <= {BN_STEP_GRAD_REL} relative L2; "
               f"bf16: the largest term <= {BN_STEP_FLOOR_LOSS} x and the "
               f"tree <= {BN_STEP_FLOOR_GRAD} x the floor (the plain step "
               "on the reversed batch, noise and dropout off); 4 bn_act "
-              "launches a BatchNorm on the kernel path, none on the plain")
+              "launches a BatchNorm on the kernel path, none on the plain; "
+              "the conv bias handed to each of the 34 BatchNorms on both")
     if not ok:
         raise AssertionError("the train step through bn_act's kernels "
                              "differs from the plain one")
@@ -1954,12 +2301,15 @@ def phase_device_guard(torch):
     gen = torch.Generator(device=dev).manual_seed(4)
     for dt in (torch.bfloat16, torch.float32):
         x, dy, w, b = bn_act_inputs(torch, (8, 32, 64, 64), dt, gen, dev)
-        got = bn_act_grads(torch, bn_act, x, dy, w, b, "relu")
+        cb = bn_conv_bias(torch, 32, dt, gen, dev)
+        got = bn_act_grads(torch, bn_act, x, dy, w, b, "relu", cb)
+        with torch.no_grad():
+            stats64 = bn_act_stats64(torch, x + cb[:, None, None])
         res = compare_bn_act(
             torch, got, bn_act_grads(torch, bn_act_plain, x, dy, w, b,
-                                     "relu"), dt, "relu",
-            bn_act_stats64(torch, x),
-            bn_act_masks(torch, x, w, b) if dt == torch.float32 else None)
+                                     "relu", cb), dt, "relu", stats64,
+            bn_act_masks(torch, x, w, b, cb) if dt == torch.float32
+            else None)
         if not res["ok"] or any(t.device != dev for t in got):
             raise AssertionError(f"bn_act on {dev} differs: {res}")
         checked.append(f"bn_act/{str(dt)[6:]}")

@@ -391,8 +391,18 @@ def test_degraded_sweep_launches_once_per_batch(cuda):
 # for values near 0), dx 1e-2 relative L2; f32: y within 1e-6 of the
 # largest |y|, dx 1e-4 relative L2 where the two activation masks agree,
 # the masks differing only where |pre| <= 1e-5 of the largest; dweight
-# and dbias 1e-3 relative L2.
+# and dbias 1e-3 relative L2. With a conv bias (folded in, as the port's
+# train step runs on the card), its gradient within chip_smoke.py's
+# absolute bound BN_DCB_SUM_REL * sum|dx| per channel (the gradient is 0
+# in exact arithmetic, so both sides hold rounding residue), and where it
+# does not cancel (the backward's sums replaced by zeros, dy moved by +1)
+# within u * |the float64 sum of dx| + 2^-13 * sum|dx|.
 # ---------------------------------------------------------------------------
+
+DCB_SUM_REL = {torch.bfloat16: 4 * 2 ** -8 + 2 ** -13,
+               torch.float32: 4 * 2 ** -24 + 2 ** -13}
+DCB_CHAIN_REL = 2 ** -13
+UNIT_ROUNDOFF = {torch.bfloat16: 2 ** -8, torch.float32: 2 ** -24}
 
 def _bn_inputs(shape, dtype, device, seed=0, fmt=torch.channels_last):
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -409,11 +419,14 @@ def _bn_inputs(shape, dtype, device, seed=0, fmt=torch.channels_last):
     return x, dy, w, b
 
 
-def _bn_run(fn, x, dy, w, b, act):
-    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
-    y, mean, var = fn(xg, wg, bg, 1e-5, act)
-    dx, dw, db = torch.autograd.grad(y, (xg, wg, bg), dy)
-    return y.detach(), mean, var, dx, dw, db
+def _bn_run(fn, x, dy, w, b, act, cb=None):
+    """(y, mean, var, dx, dw, db), and dcb where a conv bias is given."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in (x, w, b, cb) if t is not None]
+    y, mean, var = fn(*leaves[:3], 1e-5, act, None,
+                      leaves[3] if cb is not None else None)
+    return (y.detach(), mean, var,
+            *torch.autograd.grad(y, leaves, dy))
 
 
 def _rel_l2(got, want):
@@ -431,10 +444,14 @@ def _y_within_bf16(got, want):
     return bool((diff <= ulp + floor).all())
 
 
-def _assert_bn_close(got, want, x, w, b, act, dparam_scale=1.0):
+def _abs_channel_sums(t):
+    return t.double().abs().sum((0, 2, 3))
+
+
+def _assert_bn_close(got, want, x, w, b, act, dparam_scale=1.0, cb=None):
     from abcnet_tpu_torch.ops.bn_act import bn_act, bn_act_plain
-    y, mean, var, dx, dw, db = got
-    yp, mp, vp, dxp, dwp, dbp = want
+    y, mean, var, dx, dw, db = got[:6]
+    yp, mp, vp, dxp, dwp, dbp = want[:6]
     assert float(((mean - mp).abs() / (mp.square() + vp).sqrt()).max()) \
         <= 1e-5
     assert float(((var - vp).abs() / vp).max()) <= 1e-5
@@ -445,8 +462,8 @@ def _assert_bn_close(got, want, x, w, b, act, dparam_scale=1.0):
     else:
         assert float((y - yp).abs().max()) <= 1e-6 * float(yp.abs().max())
         with torch.no_grad():
-            pre_k = bn_act(x, w, b, 1e-5, "none")[0]
-            pre_p = bn_act_plain(x, w, b, 1e-5, "none")[0]
+            pre_k = bn_act(x, w, b, 1e-5, "none", None, cb)[0]
+            pre_p = bn_act_plain(x, w, b, 1e-5, "none", None, cb)[0]
         agree = ((pre_k > 0) == (pre_p > 0)) | (act == "none")
         ties = pre_p.abs().masked_fill(agree, 0).max()
         assert float(ties) <= 1e-5 * float(pre_p.abs().max())
@@ -454,6 +471,11 @@ def _assert_bn_close(got, want, x, w, b, act, dparam_scale=1.0):
         assert float(err / torch.where(agree, dxp, 0.0).norm()) <= 1e-4
     assert _rel_l2(dw, dwp * dparam_scale) <= 1e-3
     assert _rel_l2(db, dbp * dparam_scale) <= 1e-3
+    if cb is not None:
+        dcb, dcbp = got[6], want[6]
+        assert dcb.dtype == dcbp.dtype == cb.dtype
+        bound = DCB_SUM_REL[x.dtype] * _abs_channel_sums(dxp)
+        assert bool(((dcb.double() - dcbp.double()).abs() <= bound).all())
 
 
 LAYOUTS = {"channels_last": torch.channels_last,
@@ -479,6 +501,94 @@ def test_bn_act_kernels_match_plain(cuda, shape, dtype, act, fmt):
                for t in (got[0], got[3]))
     want = _bn_run(ops.bn_act_plain, x, dy, w, b, act)
     _assert_bn_close(got, want, x, w, b, act)
+
+
+@pytest.mark.parametrize("shape", [(64, 512, 16, 16), (4, 16, 64, 64),
+                                   (3, 5, 7, 9), (2, 40, 1, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
+def test_bn_act_kernels_with_conv_bias_match_plain(cuda, shape, dtype, act):
+    from abcnet_tpu_torch.ops import bn_act as ops
+    x, dy, w, b = _bn_inputs(shape, dtype, cuda, seed=1)
+    cb = (torch.randn(shape[1], device=cuda) * 1.5).to(dtype)
+    before = [k.launches for k in ops.KERNELS]
+    got = _bn_run(ops.bn_act, x, dy, w, b, act, cb)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(ops.KERNELS, before)] == \
+        [1, 1, 1, 1]
+    want = _bn_run(ops.bn_act_plain, x, dy, w, b, act, cb)
+    _assert_bn_close(got, want, x, w, b, act, cb=cb)
+    # the statistics are those of x + cb, rounded to x's type
+    xb = (x + cb[:, None, None]).double()
+    mean = xb.mean((0, 2, 3))
+    rms = (mean.square() + xb.var((0, 2, 3), correction=0)).sqrt()
+    assert float(((got[1].double() - mean).abs() / rms).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 64, 64), (8, 512, 16, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_conv_bias_gradient_where_it_does_not_cancel(cuda, shape,
+                                                            dtype):
+    """Kernel (d) with the backward's two sums replaced by zeros and dy
+    moved by +1: dx = gamma * invstd * g, whose channel sums do not
+    cancel, against the float64 sum of the dx it wrote. On the second
+    shape the split has few blocks (P), so that even in bf16 the bound
+    is below 1/P of each channel's sum: a lost or doubled block partial
+    would fail."""
+    from abcnet_tpu_torch.ops import bn_act as ops
+    c = shape[1]
+    x, dy, w, b = _bn_inputs(shape, dtype, cuda, seed=2)
+    dy = dy + 1
+    cb = (torch.randn(c, device=cuda) * 1.5).to(dtype)
+    st = ops.stats(x, 1e-5, cb)
+    zeros = torch.zeros(2, c, device=cuda)
+    dx, dcb = ops.grad_apply(x, dy, st, w, b, zeros, 1.0, "relu", cb)
+    want = dx.double().sum((0, 2, 3))
+    bound = UNIT_ROUNDOFF[dtype] * want.abs() + \
+        DCB_CHAIN_REL * _abs_channel_sums(dx)
+    assert dcb.dtype == dtype
+    assert bool(((dcb.double() - want).abs() <= bound).all())
+    assert float(want.abs().min()) > 0.0
+    if c == 512:
+        P, _ = ops._split(x, c, ops._vec(c, x, dy), ops.SUMS_KIND, "relu")
+        assert float((bound / want.abs()).max()) < 1 / P
+    # the partials merge in a fixed order: the same bits every launch
+    dx2, dcb2 = ops.grad_apply(x, dy, st, w, b, zeros, 1.0, "relu", cb)
+    assert torch.equal(dx, dx2) and torch.equal(dcb, dcb2)
+
+
+def test_bn_act_on_streams_at_once_equals_alone(cuda):
+    """Four bn_acts with a conv bias, forward and backward, each on its own
+    stream and released together by one event behind a sleep kernel, so
+    that their reductions run side by side: bit-equal to each run alone
+    (every launch merges its own partials through its own tickets)."""
+    from abcnet_tpu_torch.ops.bn_act import bn_act
+    runs = []
+    for i in range(4):
+        dt = (torch.bfloat16, torch.float32)[i % 2]
+        x, dy, w, b = _bn_inputs((4, 64, 32, 32), dt, cuda, seed=10 + i)
+        cb = (torch.randn(64, device=cuda) * 1.5).to(dt)
+        runs.append((x, dy, w, b, ("relu", "leaky_relu", "none")[i % 3],
+                     cb))
+    alone = [_bn_run(bn_act, *r) for r in runs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in runs]
+    gate = torch.cuda.Stream()
+    for _ in range(3):
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(50_000_000)
+            opened = gate.record_event()
+        together = []
+        for st, r in zip(streams, runs):
+            st.wait_stream(torch.cuda.current_stream())
+            st.wait_event(opened)
+            with torch.cuda.stream(st):
+                together.append(_bn_run(bn_act, *r))
+        torch.cuda.synchronize()
+        for got, want in zip(together, alone):
+            assert all(torch.equal(g, a) for g, a in zip(got, want))
 
 
 def test_bn_act_offsets_past_int32(cuda):
@@ -528,6 +638,14 @@ def test_bn_act_kernels_reject_what_they_do_not_take(cuda):
     v = torch.ones(4, device=cuda)
     with pytest.raises(ValueError, match="per-channel"):
         ops.apply(x, st, v.double(), v, "relu")
+    for cb, exc in ((torch.ones(5, device=cuda), ValueError),
+                    (torch.ones(4, device=cuda, dtype=torch.bfloat16),
+                     TypeError),
+                    (torch.ones(4), ValueError)):
+        before = ops.stats.launches
+        with pytest.raises(exc, match="conv_bias"):
+            ops.stats(x, 1e-5, cb)
+        assert ops.stats.launches == before
 
 
 # ---------------------------------------------------------------------------
