@@ -459,16 +459,17 @@ def unpack_peaks_host(ibuf, fbuf, spec) -> Dict[str, np.ndarray]:
 @torch.no_grad()
 def device_peaks(model, bits: torch.Tensor, heads: Dict = None,
                  quant: Dict = None,
-                 cfg: DecodeConfig = DecodeConfig()
-                 ) -> Dict[str, torch.Tensor]:
+                 cfg: DecodeConfig = DecodeConfig(),
+                 quant_packed: Dict = None) -> Dict[str, torch.Tensor]:
     """The serving program on the device: packed bits (B, H, W//8) on
     `model`'s device -> peak dict. Unpack (kernel 1) to the model's
     compute dtype, the U-Net, NMS/top-K (kernel 2), then the six wide
     heads at the peak cells (`heads`, from sparse_heads(model, dtype)) or,
     with `heads` None, every head densely. `quant`, an int8 bundle on the
     device (infer.quant), takes the backbone's place (sparse only; with
-    `heads` None it raises). make_infer_pipeline and the `bench`
-    sub-command both run it."""
+    `heads` None it raises), its conv sites' kernel weights
+    `quant_packed` (quant.pack_bundle, made once a bundle).
+    make_infer_pipeline and the `bench` sub-command both run it."""
     if quant is not None and heads is None:
         raise ValueError("the int8 backbone serves the sparse heads only; "
                          "give `heads` with `quant`")
@@ -478,7 +479,7 @@ def device_peaks(model, bits: torch.Tensor, heads: Dict = None,
         return extract_peaks(model(images), cfg)
     if quant is not None:
         from .quant import forward_quant
-        heatmaps, feats = forward_quant(quant, images)
+        heatmaps, feats = forward_quant(quant, images, packed=quant_packed)
     else:
         heatmaps, feats = model(images, dense_heads=DENSE_HEADS_SPARSE_MODE,
                                 return_features=True)
@@ -546,10 +547,12 @@ def make_infer_pipeline(model, device="cuda",
         its own.
 
     quant: an int8 bundle from infer.quant.prepare_quant: the backbone
-    becomes the s8 x s8 -> s32 path; peak extraction and the sparse wide
-    heads are unchanged. Sparse mode only."""
+    becomes the s8 x s8 -> s32 path (on a GPU the conv_s8 kernel, its
+    weights packed here once a device); peak extraction and the sparse
+    wide heads are unchanged. Sparse mode only."""
     import copy
 
+    from .quant import pack_bundle
     from .quant import to_device as quant_to_device
 
     if quant is not None and not sparse:
@@ -564,9 +567,11 @@ def make_infer_pipeline(model, device="cuda",
     replicas = []
     for i, dev in enumerate(devices):
         rep = (model if i == 0 else copy.deepcopy(model)).to(dev).eval()
+        qbundle = quant_to_device(quant, dev) if quant is not None else None
         replicas.append((rep, sparse_heads(rep, dtype) if sparse else None,
-                         quant_to_device(quant, dev)
-                         if quant is not None else None))
+                         qbundle, pack_bundle(qbundle)
+                         if qbundle is not None and dev.type == "cuda"
+                         else None))
     spec_cache = {}
 
     def dispatch(image_u8):
@@ -581,12 +586,12 @@ def make_infer_pipeline(model, device="cuda",
             bits = bits.pin_memory()
         blocks = bits.chunk(len(devices))
         parts = []
-        for (rep, heads, qbundle), dev, block in zip(replicas, devices,
-                                                     blocks):
+        for (rep, heads, qbundle, qpacked), dev, block in zip(
+                replicas, devices, blocks):
             with torch.cuda.device(dev) if dev.type == "cuda" \
                     else contextlib.nullcontext():
                 peaks = device_peaks(rep, block.to(dev, non_blocking=True),
-                                     heads, qbundle, cfg)
+                                     heads, qbundle, cfg, qpacked)
                 if "spec" not in spec_cache:
                     spec_cache["spec"] = peaks_spec(peaks)
                 parts.append(copy_to_host(*pack_peaks(peaks)))

@@ -15,15 +15,22 @@ activation scale per conv site), so one bundle runs through both:
      and dequantizes into the bf16 carry; pooling, crop and concat stay
      in the carry; the heads' 1x1 convs stay float.
 
-The s8 x s8 -> s32 convolution was XLA's in the JAX package (outside any
-Pallas kernel), so here it is a library GEMM: im2col and `torch._int_mm`
-(cuBLASLt's int8 GEMM on the card) over chunks of rows. A 3x3 transposed
-conv (stride 2) is the GEMM x·W to (..., 9·C_out) followed by an int32
-scatter-add of the nine taps. The accumulators are exact: K = 9·C_in
-reaches 4,608 products of up to 127² each, past what an f32 sum holds,
-so no float convolution of int8 values would do. cuBLASLt's int8 GEMM
-wants M > 16 and K, N multiples of 8; the operands are padded to that
-(the stem's K = 9 becomes 16).
+Each of the 28 3x3 sites (the 26 of the trunk, the two heads' 3x3) is
+one launch of the hand-written kernel `ops/conv_s8.py:conv3x3_s8` on a
+CUDA tensor: quantize while staging the input tile, s8 x s8 -> s32 on
+the int8 tensor cores, dequantize, bias, activation and cast in the
+epilogue. It reads the weights in `pack_weights`' layout, which
+`pack_bundle(q)` makes once a bundle (make_infer_pipeline does it when
+it is given a bundle). On the CPU, or with `rec` given (the tests' hook,
+which needs each site's int8 input and int32 accumulators), a site runs
+`conv3x3_s8_plain`, the chain the kernel replaced: `q8`, then im2col and
+`torch._int_mm` (`conv_int8`, exact: K = 9·C_in reaches 4,608 products
+of up to 127² each, past what an f32 sum holds, so no float convolution
+of int8 values would do), then `acc.float() * coef + b`, the activation
+and the cast. A 3x3 transposed conv (stride 2) stays a library GEMM
+x·W to (..., 9·C_out) followed by an int32 scatter-add of the nine taps
+(`convt_int8`). cuBLASLt's int8 GEMM wants M > 16 and K, N multiples of
+8; `int_mm` pads the operands to that.
 
 `make_infer_pipeline(model, quant=prepare_quant(model, images))`
 (infer/decode.py) swaps this backbone into the sparse serving path; peak
@@ -39,13 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from ..models.unet import _crop_or_pad_to
+# conv_int8 is re-exported beside this module's other exact convs
+from ..ops.conv_s8 import (conv3x3_s8, conv3x3_s8_plain,  # noqa: F401
+                           conv_int8, int_mm, pack_weights, q8)
 
 _EPS = 1e-5
 _DC_BLOCKS = ("inc1", "inc2", "down1", "down2", "inc3", "down3",
               "down4", "down5", "dconv1", "dconv2")
 _UPS = ("up1", "up2", "up3")
-# int8 elements of an im2col chunk (the GEMM's A operand)
-_CHUNK = 1 << 28
 
 
 def _t(v) -> torch.Tensor:
@@ -232,47 +240,6 @@ def quantize_folded(table: Dict, amax: Dict[str, float]) -> Dict:
 # Exact int8 convolutions
 # ---------------------------------------------------------------------------
 
-def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact. The operands are
-    zero-padded to M > 16 and K, N multiples of 8, what cuBLASLt's int8
-    GEMM takes."""
-    m, k = a.shape
-    n = b.shape[1]
-    pk, pn = -k % 8, -n % 8
-    pm = max(17 - m, 0)
-    if pk or pm:
-        a = F.pad(a, (0, pk, 0, pm))
-    if pk or pn:
-        b = F.pad(b, (0, pn, 0, pk))
-    out = torch._int_mm(a.contiguous(), b.contiguous())
-    return out[:m, :n] if (pm or pn) else out
-
-
-def _im2col(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
-    """SAME patches of NHWC x: (B*H*W, kh*kw*C), (row, col, channel)
-    order, the rows of an HWIO kernel reshaped to (kh*kw*C, O)."""
-    b, h, w, c = x.shape
-    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
-    cols = [xp[:, i:i + h, j:j + w] for i in range(kh) for j in range(kw)]
-    return torch.stack(cols, dim=3).reshape(b * h * w, kh * kw * c)
-
-
-def conv_int8(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
-    """SAME conv, stride 1, of NHWC int8 x with an HWIO int8 kernel:
-    the exact int32 accumulators (B, H, W, O), im2col and int_mm over
-    chunks of images."""
-    b, h, w, c = xq.shape
-    kh, kw, _, o = kq.shape
-    wmat = kq.reshape(kh * kw * c, o)
-    per = max(1, _CHUNK // (h * w * kh * kw * c))
-    out = torch.empty(b, h, w, o, dtype=torch.int32, device=xq.device)
-    for i in range(0, b, per):
-        part = xq[i:i + per]
-        out[i:i + per] = int_mm(_im2col(part, kh, kw), wmat).reshape(
-            part.shape[0], h, w, o)
-    return out
-
-
 def convt_int8(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
     """VALID transposed conv, stride 2, of NHWC int8 x with Flax's
     (unflipped) HWIO int8 kernel (3, 3, C, O): the exact int32
@@ -292,42 +259,67 @@ def convt_int8(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def q8(x: torch.Tensor, s: float) -> torch.Tensor:
-    """Quantize at scale s: round half to even, clip to +-127."""
-    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+def conv_sites(q: Dict):
+    """(key, scale site, layer) of the bundle's 28 3x3 conv sites in
+    forward order: the trunk's "<block>.<i>", then each head's 3x3 under
+    "y:<head>" (the heads share the scale site "y")."""
+    for name in _DC_BLOCKS[:8] + _UPS + _DC_BLOCKS[8:]:
+        layers = q[name] if isinstance(q[name], list) else q[name]["dc"]
+        for i, layer in enumerate(layers):
+            yield f"{name}.{i}", f"{name}.{i}", layer
+    for h, hp in q["heads"].items():
+        yield f"y:{h}", "y", hp["c3"]
+
+
+def pack_bundle(q: Dict) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """{key of conv_sites: (pack_weights(kq), coef)} on the bundle's
+    device, coef = scales[site] * sw, the f32 vector the kernel and the
+    plain chain both read. Made once a bundle."""
+    return {key: (pack_weights(layer[0]), q["scales"][site] * layer[1])
+            for key, site, layer in conv_sites(q)}
 
 
 @torch.no_grad()
 def forward_quant(q: Dict, images: torch.Tensor,
                   carry: torch.dtype = torch.bfloat16,
-                  rec: Optional[Dict] = None):
+                  rec: Optional[Dict] = None,
+                  packed: Optional[Dict] = None):
     """int8 forward with the (heads, features) sparse-serving contract.
-    images: NHWC (B, H, W, 1). `rec`, if given, receives each conv site's
-    int8 input and int32 accumulators (for tests; a head's 3x3 under
-    "y:<head>")."""
+    images: NHWC (B, H, W, 1). On a CUDA tensor with `rec` None each 3x3
+    site is one `conv3x3_s8` launch over `packed` (`pack_bundle(q)`,
+    made here when None); otherwise it runs `conv3x3_s8_plain`. `rec`,
+    if given, receives each conv site's int8 input and int32 accumulators
+    (for tests; a head's 3x3 under "y:<head>")."""
     scales = q["scales"]
+    kernel = rec is None and images.device.type == "cuda"
+    if kernel and packed is None:
+        packed = pack_bundle(q)
 
-    def acc(fn, x, kq, site, key):
-        xq = q8(x, scales[site])
-        y = fn(xq, kq)
-        if rec is not None:
-            rec[key] = (xq, y)
-        return y
-
-    def conv_q(x, layer, site, key=None):
+    def conv_q(x, layer, site, act, out, key=None):
         kq, sw, b = layer
-        y = acc(conv_int8, x, kq, site, key or site)
-        return y.float() * (scales[site] * sw) + b
+        key = key or site
+        if kernel:
+            w, coef = packed[key]
+            return conv3x3_s8(x.contiguous(), w, scales[site], coef, b, act,
+                              out)
+
+        def see(xq, y):
+            rec[key] = (xq, y)
+        return conv3x3_s8_plain(x, kq, scales[site], scales[site] * sw, b,
+                                act, out, see if rec is not None else None)
 
     def convt_q(x, layer, site):
         kq, sw, b = layer
-        y = acc(convt_int8, x, kq, site, site)
+        xq = q8(x, scales[site])
+        y = convt_int8(xq, kq)
+        if rec is not None:
+            rec[site] = (xq, y)
         return (y.float() * (scales[site] * sw) + b).to(carry)
 
     def dcq(name, x):
         layers = q[name] if isinstance(q[name], list) else q[name]["dc"]
         for i, layer in enumerate(layers):
-            x = F.relu(conv_q(x, layer, f"{name}.{i}")).to(carry)
+            x = conv_q(x, layer, f"{name}.{i}", "relu", carry)
         return x
 
     x1 = dcq("inc2", dcq("inc1", images.to(carry)))
@@ -348,7 +340,7 @@ def forward_quant(q: Dict, images: torch.Tensor,
 
     out = {}
     for h, hp in q["heads"].items():
-        z = F.leaky_relu(conv_q(y, hp["c3"], "y", f"y:{h}"), 0.01)
+        z = conv_q(y, hp["c3"], "y", "leaky_relu", torch.float32, f"y:{h}")
         k1, b1 = hp["c1"]
         out[h] = _conv_f(z, k1, b1)
     return out, y

@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
-KERNELS = ("unpack", "noise", "nms_topk", "bn_act")
+KERNELS = ("unpack", "noise", "nms_topk", "bn_act", "conv_s8")
 NATIVE = "native"
 
 

@@ -369,6 +369,42 @@ FUSED_LOSS_REL = 2e-2
 # int8 serving: the TPU's int8 run lost 1.2 points of exact match on 256
 # rows (logs/quant_r5.log); 4 of 64 rows allow that and near-tie flips.
 QUANT_EXACT_SLACK = 4 / 64
+# conv_s8 (ops/conv_s8.py, csrc/conv_s8.cu): the 28 3x3 sites of
+# forward_quant on a 512² image (abcnet_tpu/models/unet.py:178-198), in
+# forward order: (key, H = W, C_in, C_out, act, out type). Tolerance:
+# bit-equal to conv3x3_s8_plain (the kernel pins the chain's roundings).
+CONV_S8_SITES = (
+    ("inc1.0", 512, 1, 16), ("inc1.1", 512, 16, 16),
+    ("inc2.0", 512, 16, 16), ("inc2.1", 512, 16, 16),
+    ("down1.0", 256, 16, 32), ("down1.1", 256, 32, 32),
+    ("down2.0", 128, 32, 64), ("down2.1", 128, 64, 64),
+    ("inc3.0", 128, 64, 64), ("inc3.1", 128, 64, 64),
+    ("down3.0", 64, 64, 128), ("down3.1", 64, 128, 128),
+    ("down4.0", 32, 128, 256), ("down4.1", 32, 256, 256),
+    ("down5.0", 16, 256, 512), ("down5.1", 16, 512, 512),
+    ("up1.0", 32, 512, 256), ("up1.1", 32, 256, 256),
+    ("up2.0", 64, 256, 128), ("up2.1", 64, 128, 128),
+    ("up3.0", 128, 128, 128), ("up3.1", 128, 128, 128),
+    ("dconv1.0", 128, 128, 128), ("dconv1.1", 128, 128, 128),
+    ("dconv2.0", 128, 128, 128), ("dconv2.1", 128, 128, 128),
+    ("y:atom_target", 128, 128, 128), ("y:bond_target", 128, 128, 128))
+INT8_OPS_PER_S = 1.979e15         # H100 SXM, dense int8 tensor cores
+
+
+def conv_s8_site(key):
+    """(act, out type name) of a conv_s8 site: relu into the bf16 carry in
+    the trunk, leaky_relu in f32 at the heads' 3x3."""
+    return ("leaky_relu", "float32") if key.startswith("y:") \
+        else ("relu", "bfloat16")
+
+
+def conv_s8_bound_ms(batch, h, ci, co, out_bytes):
+    """(bytes ms, operations ms) of one site: read x (bf16), write out,
+    over 3.35 TB/s; 2 * pixels * C_out * 9 * C_in over the int8 peak."""
+    px = batch * h * h
+    t_bytes = (px * ci * 2 + px * co * out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * px * co * 9 * ci / INT8_OPS_PER_S * 1e3
+    return t_bytes, t_ops
 # mesh_serving: row blocks on a one-GPU machine, and the SMILES that may
 # flip against the whole-batch run (near-tie NMS flips, as the f32 gate
 # allows against JAX)
@@ -1165,6 +1201,106 @@ def check_bn_act_eval_serving(torch, fixture):
     return res
 
 
+def conv_s8_inputs(torch, shape, co, gen, dev="cuda",
+                   dtype="bfloat16"):
+    """A conv_s8 site's operands: x (B, H, W, C_in) with about 2% of its
+    values past the clamp at scale 4/127, a random HWIO int8 kernel, the
+    scale, coef = scale * sw and the bias."""
+    ci = shape[-1]
+    x = (torch.randn(shape, device=dev, generator=gen) * 2).to(
+        getattr(torch, dtype))
+    k = torch.randint(-127, 128, (3, 3, ci, co), device=dev, generator=gen,
+                      dtype=torch.int8)
+    scale = 4.0 / 127.0
+    coef = scale * (torch.rand(co, device=dev, generator=gen) * 1e-3 + 1e-4)
+    bias = torch.randn(co, device=dev, generator=gen) * 0.5
+    return x, k, scale, coef, bias
+
+
+# Scales the quantize's rounding is swept at: 1.0f / f32(s) and f32(1 / s),
+# the reciprocal ATen multiplies by, differ for 0.0371.
+CONV_S8_SCALES = (4 / 127, 0.0371, 0.0123456789, 0.3, 1.7e-3)
+
+
+def conv_s8_sweep(torch, dtype, scale, dev="cuda"):
+    """Inputs that take conv_s8's quantize apart, (1, H, 32, 32) in
+    `dtype` (bf16 or f32): every finite bf16 value; in f32 each rounding
+    boundary (k + 1/2) * scale for -129 <= k <= 128 with its four f32
+    neighbours either side. Through an identity kernel (identity_s8) the
+    output is the quantized input."""
+    if dtype == torch.bfloat16:
+        v = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+            torch.int16).view(torch.bfloat16).float()
+    else:
+        c = ((torch.arange(-129, 129, dtype=torch.float64) + 0.5) *
+             scale).float()
+        vals, up, down = [c], c, c
+        for _ in range(4):
+            up = torch.nextafter(up, torch.tensor(float("inf")))
+            down = torch.nextafter(down, torch.tensor(float("-inf")))
+            vals += [up, down]
+        v = torch.cat(vals)
+    v = v[torch.isfinite(v)]
+    v = torch.cat([v, v.new_zeros(-v.numel() % 1024)])
+    return v.reshape(1, -1, 32, 32).to(dev, dtype)
+
+
+def identity_s8(torch, dev="cuda"):
+    """(kernel, coef, bias) of a 32-channel conv whose f32 output with act
+    "none" is its int8 input: 1 on the diagonal of the centre tap."""
+    k = torch.zeros(3, 3, 32, 32, dtype=torch.int8, device=dev)
+    k[1, 1] = torch.eye(32, dtype=torch.int8, device=dev)
+    return (k, torch.ones(32, device=dev),
+            torch.zeros(32, device=dev))
+
+
+def raw_bits(torch, t):
+    """A bf16 or f32 tensor's bits, for comparisons bit for bit."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_conv_s8(torch):
+    """conv3x3_s8 against conv3x3_s8_plain at the 28 site shapes of a batch
+    of 64 (CONV_S8_SITES), random operands, and on the quantize's rounding
+    sweeps (conv_s8_sweep) at CONV_S8_SCALES: bit-equal, compared as raw
+    bits (the sweeps' outputs also equal to q8 of the input)."""
+    from abcnet_tpu_torch.ops.conv_s8 import (conv3x3_s8, conv3x3_s8_plain,
+                                              pack_weights, q8)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    cases, err = [], 0.0
+    for key, h, ci, co in CONV_S8_SITES:
+        act, out = conv_s8_site(key)
+        x, k, scale, coef, bias = conv_s8_inputs(torch, (BATCH, h, h, ci), co,
+                                                 gen)
+        dt = getattr(torch, out)
+        got = conv3x3_s8(x, pack_weights(k), scale, coef, bias, act, dt)
+        want = conv3x3_s8_plain(x, k, scale, coef, bias, act, dt)
+        equal = bool(torch.equal(raw_bits(torch, got), raw_bits(torch, want)))
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        cases.append({"site": key, "shape": [BATCH, h, h, ci, co],
+                      "act": act, "out": out, "equal": equal})
+        del x, got, want
+    k, coef, bias = identity_s8(torch)
+    w = pack_weights(k)
+    for dt in (torch.bfloat16, torch.float32):
+        for scale in CONV_S8_SCALES:
+            x = conv_s8_sweep(torch, dt, scale)
+            got = conv3x3_s8(x, w, scale, coef, bias, "none", torch.float32)
+            want = conv3x3_s8_plain(x, k, scale, coef, bias, "none",
+                                    torch.float32)
+            equal = bool(torch.equal(raw_bits(torch, got),
+                                     raw_bits(torch, want)) and
+                         torch.equal(got, q8(x, scale).float()))
+            cases.append({"site": f"rounding/{str(dt)[6:]}/{scale:.6g}",
+                          "values": x.numel(), "equal": equal})
+    torch.cuda.synchronize()
+    if not all(c["equal"] for c in cases):
+        raise AssertionError("conv_s8 differs from conv3x3_s8_plain: " +
+                             str([c["site"] for c in cases
+                                  if not c["equal"]]))
+    return cases, err
+
+
 def phase_kernels(torch, fixture):
     import numpy as np
 
@@ -1222,6 +1358,7 @@ def phase_kernels(torch, fixture):
     bn_cases, bn_err = check_bn_act(torch)
     eval_cases, eval_err = check_bn_act_eval(torch)
     eval_serving = check_bn_act_eval_serving(torch, fixture)
+    s8_cases, s8_err = check_conv_s8(torch)
     emit("kernels_vs_plain", ok=True, unpack_cases=unpack_cases,
          unpack_max_abs_err=unpack_err, noise_cases=noise_cases,
          noise_max_abs_err=noise_err, nms_cases=nms_cases,
@@ -1240,9 +1377,13 @@ def phase_kernels(torch, fixture):
          bn_act_eval_gate="bit-equal to bn_act_eval_plain, or else within "
                           "one bf16 ulp (f32: two ulps) with the differing "
                           "elements counted",
-         bn_act_eval_serving=eval_serving)
+         bn_act_eval_serving=eval_serving, conv_s8_cases=s8_cases,
+         conv_s8_max_abs_err=s8_err,
+         conv_s8_gate="bit-equal to conv3x3_s8_plain at every site shape "
+                      f"of a batch of {BATCH} and on every rounding sweep")
     return {"unpack_bits": unpack_err, "unpack_noise": noise_err,
-            "nms_topk": nms_err, "bn_act": bn_err, "bn_act_eval": eval_err}
+            "nms_topk": nms_err, "bn_act": bn_err, "bn_act_eval": eval_err,
+            "conv_s8": s8_err}
 
 
 def serve(torch, fixture, dtype, images=None):
@@ -2213,10 +2354,11 @@ def phase_bn_act_step(torch, samples):
 
 def reset_launches():
     from abcnet_tpu_torch.ops import bn_act
+    from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.unpack import unpack_bits
-    for fn in (unpack_bits, unpack_noise, nms_topk):
+    for fn in (unpack_bits, unpack_noise, nms_topk, conv3x3_s8):
         fn.launches = 0
     bn_act.reset_launches()
 
@@ -2224,25 +2366,28 @@ def reset_launches():
 def read_launches():
     """Launches by kernel; bn_act's are those of its four train-mode entry
     points (statistics, apply, backward sums, backward apply) together,
-    bn_act_eval's those of the eval kernel."""
+    bn_act_eval's those of the eval kernel, conv_s8's those of the int8
+    conv kernel."""
     from abcnet_tpu_torch.ops import bn_act
+    from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.unpack import unpack_bits
     return {"unpack_bits": unpack_bits.launches,
             "unpack_noise": unpack_noise.launches,
             "nms_topk": nms_topk.launches, "bn_act": bn_act.launches(),
-            "bn_act_eval": bn_act.eval_apply.launches}
+            "bn_act_eval": bn_act.eval_apply.launches,
+            "conv_s8": conv3x3_s8.launches}
 
 
 def serving_launches(batches, eval_batches=0, model="sparse"):
     """The launch dict of `batches` sparse serving batches and
     `eval_batches` dense eval forwards (eval_step, test-acc) of the
-    production UNet, nothing trained."""
+    production UNet, nothing trained, no int8 backbone."""
     return {"unpack_bits": batches + eval_batches, "unpack_noise": 0,
             "nms_topk": batches, "bn_act": 0,
             "bn_act_eval": EVAL_BN[model] * batches
-            + EVAL_BN["dense"] * eval_batches}
+            + EVAL_BN["dense"] * eval_batches, "conv_s8": 0}
 
 
 def train_bn_launches(model, steps):
@@ -2256,12 +2401,14 @@ def train_bn_launches(model, steps):
 def phase_device_guard(torch):
     """Every kernel wrapper on the last visible GPU while GPU 0 is the
     current device, bit-equal to its plain version there (bn_act within
-    the kernels phase's tolerances; bn_act_eval bit-equal)."""
+    the kernels phase's tolerances; bn_act_eval and conv_s8 bit-equal)."""
     import numpy as np
 
     from abcnet_tpu_torch.data.pipeline import draw_noise_rates
     from abcnet_tpu_torch.ops.bn_act import (bn_act, bn_act_eval,
                                              bn_act_eval_plain, bn_act_plain)
+    from abcnet_tpu_torch.ops.conv_s8 import (conv3x3_s8, conv3x3_s8_plain,
+                                              pack_weights)
     from abcnet_tpu_torch.ops.noise import (int32_probe, unpack_noise,
                                             unpack_noise_plain)
     from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
@@ -2320,6 +2467,13 @@ def phase_device_guard(torch):
                     got, bn_act_eval_plain(x, cb, *st, BN_EPS, "relu", dt)):
                 raise AssertionError(f"bn_act_eval on {dev} differs")
         checked.append(f"bn_act_eval/{str(dt)[6:]}")
+        x, k, scale, coef, bias = conv_s8_inputs(torch, (4, 64, 64, 48), 40,
+                                                 gen, dev, str(dt)[6:])
+        got = conv3x3_s8(x, pack_weights(k), scale, coef, bias)
+        if got.device != dev or not torch.equal(raw_bits(torch, got), raw_bits(
+                torch, conv3x3_s8_plain(x, k, scale, coef, bias))):
+            raise AssertionError(f"conv_s8 on {dev} differs")
+        checked.append(f"conv_s8/{str(dt)[6:]}")
     torch.cuda.synchronize(dev)
     checked += ["null_launch", "int32_probe"]
     if torch.cuda.current_device() != 0:
@@ -2990,15 +3144,124 @@ def phase_variants(torch, fixture, samples):
     return launches
 
 
-def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
-    import numpy as np
+def s8_plain_over_packed(x, w, scale, coef, bias, act="relu",
+                         out_dtype=None):
+    """conv3x3_s8's call over conv3x3_s8_plain (the packed weights
+    unpacked): patched into infer.quant, it serves the int8 backbone
+    through the chain the kernel replaced."""
+    import torch
 
+    from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8_plain, unpack_weights
+    return conv3x3_s8_plain(x, unpack_weights(w, x.shape[-1]), scale, coef,
+                            bias, act, out_dtype or torch.bfloat16)
+
+
+def conv_s8_sites(torch, bundle, packed, carry):
+    """Line conv_s8_sites: each of the 28 sites on the activations the
+    fixture gives it (one forward_quant of the 64 masks, the kernel's
+    calls recorded): the kernel against conv3x3_s8_plain bit for bit, its
+    ms, the bound, the plain chain's ms, and torch._int_mm's ms on the
+    site's im2col matrix built beforehand (the library GEMM alone, over
+    conv_int8's chunks, operands padded as int_mm pads them); how `x.float()
+    / s` rounds on the card (a multiply by the f32 reciprocal, as the
+    kernel does, or a true division) and how many quantized inputs a true
+    division would change. Returns (row totals, per-site list)."""
+    import torch.nn.functional as F
+
+    from abcnet_tpu_torch.infer import quant
+    from abcnet_tpu_torch.ops import conv_s8
+
+    calls = []
+
+    def recording(*args):
+        calls.append(args)
+        return conv_s8.conv3x3_s8(*args)
+
+    quant.conv3x3_s8 = recording
+    try:
+        with torch.no_grad():
+            quant.forward_quant(bundle, carry, packed=packed)
+    finally:
+        quant.conv3x3_s8 = conv_s8.conv3x3_s8
+    layers = {key: layer for key, _, layer in quant.conv_sites(bundle)}
+    keys = [key for key, _, _ in quant.conv_sites(bundle)]
+    if [tuple(c[0].shape[1:]) for c in calls] != [
+            (h, h, ci) for _, h, ci, _ in CONV_S8_SITES] or len(keys) != 28:
+        raise AssertionError("forward_quant's conv_s8 calls are not the 28 "
+                             "sites of CONV_S8_SITES")
+    sites, rounding = [], {"reciprocal": 0, "true_division": 0,
+                           "true_division_changes_q": 0, "inputs": 0}
+    for key, (x, w, scale, coef, bias, act, out) in zip(keys, calls):
+        kq = layers[key][0]
+        got = conv_s8.conv3x3_s8(x, w, scale, coef, bias, act, out)
+        want = conv_s8.conv3x3_s8_plain(x, kq, scale, coef, bias, act, out)
+        equal = bool(torch.equal(raw_bits(torch, got), raw_bits(torch, want)))
+        q = x.float() / scale
+        s_dev = torch.tensor(scale, dtype=torch.float32, device=x.device)
+        rounding["reciprocal"] += bool(torch.equal(
+            q, x.float() * conv_s8.reciprocal(scale)))
+        rounding["true_division"] += bool(torch.equal(q, x.float() / s_dev))
+        rounding["true_division_changes_q"] += int((conv_s8.q8(x, scale) != (
+            torch.clamp(torch.round(x.float() / s_dev), -127, 127)
+            .to(torch.int8))).sum())
+        rounding["inputs"] += x.numel()
+        # the library GEMM alone on the site's pre-built im2col chunks
+        b, h, _, ci = x.shape
+        xq = conv_s8.q8(x, scale)
+        wmat = kq.reshape(9 * ci, -1)
+        pk, pn = -wmat.shape[0] % 8, -wmat.shape[1] % 8
+        wmat = F.pad(wmat, (0, pn, 0, pk)).contiguous()
+        per = max(1, conv_s8.IM2COL_CHUNK // (h * h * 9 * ci))
+        mats = [F.pad(conv_s8.im2col(xq[i:i + per], 3, 3), (0, pk))
+                .contiguous() for i in range(0, b, per)]
+        ms = device_ms(torch, lambda: conv_s8.conv3x3_s8(
+            x, w, scale, coef, bias, act, out))
+        plain_ms = device_ms(torch, lambda: conv_s8.conv3x3_s8_plain(
+            x, kq, scale, coef, bias, act, out))
+        int_mm_ms = device_ms(torch, lambda: [torch._int_mm(a, wmat)
+                                              for a in mats])
+        del mats
+        t_bytes, t_ops = conv_s8_bound_ms(b, h, ci, wmat.shape[1] - pn,
+                                          got.element_size())
+        sites.append({"site": key, "shape": [b, h, h, ci, got.shape[-1]],
+                      "act": act, "out": str(out)[6:], "equal": equal,
+                      "ms": ms, "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "plain_ms": plain_ms,
+                      "int_mm_ms": int_mm_ms})
+        del got, want, q, xq
+    torch.cuda.empty_cache()
+    if not all(c["equal"] for c in sites):
+        raise AssertionError("conv_s8 differs from its plain chain on the "
+                             "fixture's activations")
+    totals = {k: sum(c[k] for c in sites)
+              for k in ("ms", "bound_ms", "plain_ms", "int_mm_ms")}
+    bytes_ms = sum(conv_s8_bound_ms(*c["shape"][:2], *c["shape"][3:],
+                                    4 if c["out"] == "float32" else 2)[0]
+                   for c in sites)
+    ops_ms = sum(conv_s8_bound_ms(*c["shape"][:2], *c["shape"][3:],
+                                  4 if c["out"] == "float32" else 2)[1]
+                 for c in sites)
+    emit("conv_s8_sites", ok=True, sites=sites, totals=totals,
+         bytes_ms=bytes_ms, operations_ms=ops_ms, rounding=rounding,
+         note="medians of 25 CUDA-event timings at batch 64 on the fixture's "
+              "activations; bound per site the larger of (read x, write out) "
+              "over 3.35 TB/s and 2*pixels*C_out*9*C_in over 1,979 int8 "
+              "TOPS; rounding: sites where x.float() / s equals the multiply "
+              "by the f32 reciprocal, sites where it equals the true "
+              "division, and the quantized inputs a true division would "
+              "change, of `inputs`")
+    return totals, sites
+
+
+def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
     from abcnet_tpu_torch.__main__ import img2smiles_loop
     from abcnet_tpu_torch.data.pipeline import pack_images
     from abcnet_tpu_torch.eval.scoring import score_pairs
     from abcnet_tpu_torch.infer import quant
     from abcnet_tpu_torch.infer.decode import (DENSE_HEADS_SPARSE_MODE,
                                                make_infer_pipeline)
+    from abcnet_tpu_torch.ops import conv_s8
     from abcnet_tpu_torch.ops.unpack import unpack_bits
 
     images = fixture["images"]
@@ -3019,13 +3282,35 @@ def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
     b_rep = score_pairs(truth, [p or None for p in bf16_preds])
     agree = sum(p == b for p, b in zip(preds, bf16_preds))
 
+    # The same serving through the plain int8 backbone (conv3x3_s8_plain at
+    # every site, the routing before the kernel): peak dicts and SMILES.
+    peaks = run(images)
+    quant.conv3x3_s8 = s8_plain_over_packed
+    try:
+        plain_run = make_infer_pipeline(bf16_model, "cuda", quant=bundle)
+        plain_peaks = plain_run(images)
+        plain_preds = [p or "" for p in img2smiles_loop(
+            plain_run, list(images), BATCH, log_every=0)]
+    finally:
+        quant.conv3x3_s8 = conv_s8.conv3x3_s8
+    peaks_equal = _peaks_equal(plain_peaks, peaks)
+    plain_agree = sum(p == q for p, q in zip(preds, plain_preds))
+
     carry = masks.to(torch.bfloat16)
+    packed = quant.pack_bundle(bundle)
     with torch.no_grad():
-        int8_ms = device_ms(torch, lambda: quant.forward_quant(bundle, carry),
-                            reps=5)
+        int8_ms = device_ms(torch, lambda: quant.forward_quant(
+            bundle, carry, packed=packed), reps=5)
         bf16_ms = device_ms(torch, lambda: bf16_model(
             carry, dense_heads=DENSE_HEADS_SPARSE_MODE,
             return_features=True), reps=5)
+        quant.conv3x3_s8 = s8_plain_over_packed
+        try:
+            plain_backbone_ms = device_ms(torch, lambda: quant.forward_quant(
+                bundle, carry, packed=packed), reps=5)
+        finally:
+            quant.conv3x3_s8 = conv_s8.conv3x3_s8
+    totals, sites = conv_s8_sites(torch, bundle, packed, carry)
 
     # int32 accumulators against a float64 convolution of the same int8
     # tensors on the card: exact, as the sums stay far below 2^53.
@@ -3055,21 +3340,61 @@ def phase_quant_serving(torch, fixture, bf16_model, bf16_preds):
                        "equal": bool(torch.equal(got.double(), want))}
     ok = (all(e["equal"] for e in exact.values()) and
           q_rep.exact_match >= b_rep.exact_match - QUANT_EXACT_SLACK and
-          launches == {**serving_launches(1), "bn_act_eval": 0})
+          peaks_equal and plain_agree == len(images) and
+          launches == {**serving_launches(1), "bn_act_eval": 0,
+                       "conv_s8": len(CONV_S8_SITES)})
     emit("quant_serving", ok=ok, n=len(truth), calibration_images=32,
          prepare_s=prep_s, int8_exact=q_rep.exact_match,
          bf16_exact=b_rep.exact_match, agree_with_bf16=agree,
          int8=str(q_rep), bf16=str(b_rep), launches=launches,
+         peaks_equal_plain_int8=peaks_equal,
+         smiles_equal_plain_int8=plain_agree,
          int8_backbone_ms=int8_ms, bf16_trunk_ms=bf16_ms,
-         int32_vs_float64_conv=exact,
-         gate=f"int8 exact >= bf16 exact - {QUANT_EXACT_SLACK:.4f}; int32 "
-              "accumulators equal to a float64 conv; one unpack and one NMS "
-              "launch, no BatchNorm kernel (the int8 backbone folds them)",
-         note="backbone ms: forward_quant vs the bf16 UNet trunk + heatmap "
-              "heads on the same 64 masks, median of 5 CUDA-event timings")
+         int8_plain_backbone_ms=plain_backbone_ms,
+         conv_s8_sites_ms=totals["ms"], int32_vs_float64_conv=exact,
+         gate=f"int8 exact >= bf16 exact - {QUANT_EXACT_SLACK:.4f}; peak "
+              "dicts bit-equal to the plain int8 backbone's and its SMILES "
+              f"{len(images)}/{len(images)}; int32 accumulators equal to a "
+              "float64 conv; one unpack and one NMS launch, no BatchNorm "
+              f"kernel (the int8 backbone folds them), {len(CONV_S8_SITES)} "
+              "conv_s8 launches a batch",
+         note="backbone ms: forward_quant through conv_s8, through "
+              "conv3x3_s8_plain, and the bf16 UNet trunk + heatmap heads on "
+              "the same 64 masks, median of 5 CUDA-event timings")
     if not ok:
         raise AssertionError("int8 serving below its gates")
-    return launches
+    return launches, conv_s8_row(launches, totals, sites)
+
+
+def conv_s8_row(launches, totals, sites):
+    """The kernels-line row of conv_s8: the 28 sites of a batch of 64 on
+    the fixture's activations (line conv_s8_sites), times and bounds
+    summed over the sites."""
+    by_site = {c["site"]: c for c in sites}
+    bytes_sites = sum(c["bound_by"] == "bytes" for c in sites)
+    return {
+        "name": "conv_s8", "route": "cuda",
+        "source": "abcnet_tpu_torch/csrc/conv_s8.cu",
+        "replaces": "abcnet_tpu/infer/quant.py:199-204 (XLA's s8 x s8 -> "
+                    "s32 convolution with the quantize and dequantize fused "
+                    "around it; no Pallas counterpart)",
+        "launches": launches["conv_s8"], "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": "bytes" if bytes_sites * 2 > len(sites)
+        else "operations",
+        "library_ms": None, "operations_type": "int8",
+        "int_mm_ms": totals["int_mm_ms"],
+        "inc1.1_ms": by_site["inc1.1"]["ms"],
+        "dconv1.0_ms": by_site["dconv1.0"]["ms"],
+        "shape": f"the 28 3x3 sites of forward_quant at batch {BATCH} "
+                 "(CONV_S8_SITES), ms and bounds summed over them, "
+                 f"{bytes_sites} sites bound by bytes; launches counted over "
+                 "the quant_serving phase",
+        "library": "none: PyTorch has no int8 convolution on CUDA; "
+                   "int_mm_ms is torch._int_mm alone on the sites' "
+                   "pre-built im2col matrices, the product without the "
+                   "im2col, quantize or epilogue"}
 
 
 # ---------------------------------------------------------------------------
@@ -4633,6 +4958,7 @@ def phase_recipe(torch, fixture):
 
 
 def main(argv):
+    t_start = time.time()
     if argv[:1] == ["--ddp-worker"]:
         ddp_worker(*argv[1:3])
         return 0
@@ -4715,7 +5041,7 @@ def main(argv):
                                                    bf16_preds))
         if want("quant_serving"):
             phase = "quant_serving"
-            by_path["int8_serving"] = phase_quant_serving(
+            by_path["int8_serving"], s8_row = phase_quant_serving(
                 torch, fixture, model, bf16_preds)
         del model, run
         torch.cuda.empty_cache()
@@ -4763,9 +5089,11 @@ def main(argv):
         print("chip_smoke: --phases ran a subset; no result line",
               file=sys.stderr)
         return 4
+    kernels.append({**s8_row, "max_abs_err": errs["conv_s8"]})
     for k in kernels:
         k["launches_by_path"] = {path: n.get(k["name"], 0)
                                  for path, n in by_path.items()}
+    emit("script", ok=True, seconds=time.time() - t_start, limit_s=1200)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one: a CUDA kernel has no CPU mode, and the plain versions are held to
 abcnet_tpu on the CPU by tests/test_torch_unpack.py,
-tests/test_torch_noise.py and tests/test_torch_peaks.py. The file imports no JAX, so on the GPU
+tests/test_torch_noise.py, tests/test_torch_peaks.py and
+tests/test_torch_conv_s8.py. The file imports no JAX, so on the GPU
 machine (which has none) it runs with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
@@ -14,6 +15,7 @@ Tolerance: bit-equality, scores and every index slot included.
 import pytest
 import torch
 
+import chip_smoke
 from abcnet_tpu_torch.ops import peaks
 from abcnet_tpu_torch.ops.noise import unpack_noise, unpack_noise_plain
 from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
@@ -785,3 +787,195 @@ def test_eval_forward_through_the_kernel_is_the_chain(cuda, name, dtype,
         assert sorted(g) == sorted(w)
         for k in g:
             assert torch.equal(g[k], w[k]), k
+
+
+# ---------------------------------------------------------------------------
+# conv_s8 (ops/conv_s8.py, csrc/conv_s8.cu): one int8 3x3 conv site,
+# quantize -> s8 x s8 -> s32 -> dequantize, bias, activation, cast,
+# against conv3x3_s8_plain (q8, im2col + torch._int_mm, the epilogue as
+# separate ops) on the same inputs: bit-equal, compared as raw bits.
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _s8_inputs(shape, co, device, dtype=torch.bfloat16, seed=0):
+    """x (B, H, W, C_in) with about 2% of its values past the clamp, a
+    random HWIO int8 kernel, the site's scale, coef and bias."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ci = shape[-1]
+    x = (torch.randn(shape, device=device, generator=gen) * 2).to(dtype)
+    k = torch.randint(-127, 128, (3, 3, ci, co), device=device,
+                      generator=gen, dtype=torch.int8)
+    scale = 5.0 / 127.0 * (1 + seed / 7)
+    sw = torch.rand(co, device=device, generator=gen) * 1e-3 + 1e-4
+    bias = torch.randn(co, device=device, generator=gen) * 0.5
+    return x, k, scale, scale * sw, bias
+
+
+def _s8_check(x, k, scale, coef, bias, act, out_dtype):
+    from abcnet_tpu_torch.ops.conv_s8 import (conv3x3_s8, conv3x3_s8_plain,
+                                              pack_weights)
+    before = conv3x3_s8.launches
+    got = conv3x3_s8(x, pack_weights(k), scale, coef, bias, act, out_dtype)
+    torch.cuda.synchronize()
+    assert conv3x3_s8.launches == before + 1
+    want = conv3x3_s8_plain(x, k, scale, coef, bias, act, out_dtype)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("site", [s[0] for s in chip_smoke.CONV_S8_SITES])
+def test_conv_s8_matches_plain_at_every_site(cuda, site):
+    key, h, ci, co = next(s for s in chip_smoke.CONV_S8_SITES
+                          if s[0] == site)
+    act, out = chip_smoke.conv_s8_site(key)
+    _s8_check(*_s8_inputs((2, h, h, ci), co, cuda), act,
+              getattr(torch, out))
+
+
+@pytest.mark.parametrize("shape,co", [((1, 13, 21, 1), 16),
+                                      ((1, 7, 9, 48), 40),
+                                      ((2, 17, 33, 40), 24),
+                                      ((1, 5, 3, 16), 136),
+                                      ((3, 31, 17, 8), 8),
+                                      ((1, 1, 1, 32), 16),
+                                      ((1, 9, 16, 3), 7)])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+def test_conv_s8_matches_plain_at_odd_shapes(cuda, shape, co, act, out_dtype,
+                                             in_dtype):
+    """Odd H and W, batch 1, C_in = 1 and not a multiple of 32 (nor of 8:
+    the scalar loads), C_out not a multiple of the tile (nor even: single
+    stores), f32 input."""
+    _s8_check(*_s8_inputs(shape, co, cuda, in_dtype, seed=shape[-1]), act,
+              out_dtype)
+
+
+def test_conv_s8_offsets_past_int32(cuda):
+    """130 x 512² x 64 bf16 values, past 2^31 elements: the last images
+    against the plain chain on them alone."""
+    from abcnet_tpu_torch.ops.conv_s8 import (conv3x3_s8, conv3x3_s8_plain,
+                                              pack_weights)
+    x, k, scale, coef, bias = _s8_inputs((2, 512, 512, 64), 64, cuda)
+    big = torch.zeros(130, 512, 512, 64, dtype=torch.bfloat16, device=cuda)
+    big[-2:] = x
+    assert big.numel() > 2 ** 31
+    got = conv3x3_s8(big, pack_weights(k), scale, coef, bias)[-2:]
+    del big
+    want = conv3x3_s8_plain(x, k, scale, coef, bias)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_conv_s8_on_streams_at_once_equals_alone(cuda):
+    from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8, pack_weights
+    cases = [_s8_inputs((8, 64, 64, 64), 128, cuda, seed=s) for s in (1, 2)]
+    args = [(x, pack_weights(k), s, c, b) for x, k, s, c, b in cases]
+    alone = [conv3x3_s8(*a) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in args]
+    outs = []
+    for st, a in zip(streams, args):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(conv3x3_s8(*a))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, alone):
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def test_conv_s8_launches_on_its_tensors_device(last_gpu):
+    x, k, scale, coef, bias = _s8_inputs((2, 32, 32, 16), 16, last_gpu)
+    _s8_check(x, k, scale, coef, bias, "relu", torch.bfloat16)
+    assert torch.cuda.current_device() == 0
+
+
+def test_conv_s8_rejects_what_it_does_not_take(cuda):
+    from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8, pack_weights
+    x, k, scale, coef, bias = _s8_inputs((1, 8, 8, 16), 16, cuda)
+    w = pack_weights(k)
+    with pytest.raises(TypeError):
+        conv3x3_s8(x.half(), w, scale, coef, bias)
+    with pytest.raises(TypeError):
+        conv3x3_s8(x.to(torch.int8), w, scale, coef, bias)
+    with pytest.raises(ValueError):                 # not NHWC-contiguous
+        conv3x3_s8(x.transpose(1, 2), w, scale, coef, bias)
+    with pytest.raises(ValueError):                 # another C_in's layout
+        conv3x3_s8(torch.cat([x, x, x], -1), w, scale, coef, bias)
+    with pytest.raises(ValueError):                 # HWIO, not packed
+        conv3x3_s8(x, k, scale, coef, bias)
+    with pytest.raises(ValueError):
+        conv3x3_s8(x, w, scale, coef.double(), bias)
+    with pytest.raises(ValueError):
+        conv3x3_s8(x, w, scale, coef, bias.cpu())
+    with pytest.raises(TypeError):                  # a tensor divides exactly
+        conv3x3_s8(x, w, torch.tensor(scale, device=cuda), coef, bias)
+    with pytest.raises(ValueError):
+        conv3x3_s8(x, w, scale, coef, bias, act="gelu")
+    with pytest.raises(TypeError):
+        conv3x3_s8(x, w, scale, coef, bias, out_dtype=torch.float16)
+
+
+def test_int8_forward_goes_through_conv_s8(cuda, monkeypatch):
+    """forward_quant on the card: 28 conv_s8 launches a batch, heads and
+    features bit-equal to the same forward through conv3x3_s8_plain; the
+    pipeline's int8 serving equals it through the plain chain."""
+    import numpy as np
+
+    from abcnet_tpu_torch.infer import quant
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models import UNet
+    from abcnet_tpu_torch.ops import conv_s8
+
+    torch.manual_seed(0)
+    model = UNet(dtype=torch.bfloat16).to(cuda).eval()
+    rng = np.random.default_rng(0)
+    masks = (rng.random((4, 64, 64, 1)) < 0.1).astype(np.float32)
+    bundle = quant.prepare_quant(model, masks)
+    images = torch.from_numpy(masks).to(cuda)
+    packed = quant.pack_bundle(bundle)
+    assert sorted(packed) == sorted(k for k, _, _ in
+                                    quant.conv_sites(bundle))
+    before = conv_s8.conv3x3_s8.launches
+    out, y = quant.forward_quant(bundle, images, packed=packed)
+    torch.cuda.synchronize()
+    assert conv_s8.conv3x3_s8.launches - before == 28
+    rec = {}
+    want_out, want_y = quant.forward_quant(bundle, images, rec=rec)
+    assert conv_s8.conv3x3_s8.launches - before == 28
+    assert torch.equal(_bits(y), _bits(want_y))
+    for h in out:
+        assert torch.equal(_bits(out[h]), _bits(want_out[h])), h
+
+    u8 = (255 * (1 - masks[..., 0])).astype(np.uint8)
+    got = make_infer_pipeline(model, cuda, quant=bundle)(u8)
+
+    def plain(x, w, scale, coef, bias, act, out_dtype):
+        return conv_s8.conv3x3_s8_plain(
+            x, conv_s8.unpack_weights(w, x.shape[-1]), scale, coef, bias,
+            act, out_dtype)
+
+    monkeypatch.setattr(quant, "conv3x3_s8", plain)
+    want = make_infer_pipeline(model, cuda, quant=bundle)(u8)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("scale", chip_smoke.CONV_S8_SCALES)
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+def test_conv_s8_quantizes_as_the_chain(cuda, scale, in_dtype):
+    """Every finite bf16 value, and each f32 rounding boundary of the
+    quantize with its neighbours, through an identity kernel: the output
+    is q8 of the input, bit for bit, as the plain chain's is."""
+    from abcnet_tpu_torch.ops.conv_s8 import (conv3x3_s8, conv3x3_s8_plain,
+                                              pack_weights, q8)
+    x = chip_smoke.conv_s8_sweep(torch, in_dtype, scale, cuda)
+    k, coef, bias = chip_smoke.identity_s8(torch, cuda)
+    got = conv3x3_s8(x, pack_weights(k), scale, coef, bias, "none",
+                     torch.float32)
+    assert torch.equal(got, q8(x, scale).float())
+    want = conv3x3_s8_plain(x, k, scale, coef, bias, "none", torch.float32)
+    assert torch.equal(_bits(got), _bits(want))
