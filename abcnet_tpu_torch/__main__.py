@@ -66,32 +66,53 @@ def img2smiles_loop(run, images: Sequence[np.ndarray], batch_size: int,
     on a worker thread, and the main thread assembles batch i meanwhile,
     so the steady state is max(device, fetch, assembly), not their sum.
     The trailing chunk is padded to the full batch with its last image
-    and the padding dropped afterwards, so every row is scored."""
+    and the padding dropped afterwards, so every row is scored.
+
+    Under a torch.profiler profile each batch's spans and counters are
+    recorded (utils/profiling.py; `profiling.trace` writes them out):
+    here `stack` and `wait`, which waits for the fetch thread."""
     from .infer.assemble import assemble_batch
+    from .utils import profiling
 
     if assemble is None:
         def assemble(peaks):
             return assemble_batch(peaks, pool=pool)
     dispatch = getattr(run, "dispatch", run)
     fetch = getattr(run, "fetch", lambda h: h)
+
+    def finish(fut, k, bid):
+        with profiling.batch(bid):
+            with profiling.span("wait"):
+                peaks = fut.result()
+            return assemble(peaks)[:k]
+
     preds: List = []
-    pending = None                       # (future -> host peaks, n_real)
+    pending = None                 # (future -> host peaks, n_real, batch id)
     fetcher = ThreadPoolExecutor(max_workers=1)
     try:
         for i in range(0, len(images), batch_size):
-            chunk = list(images[i:i + batch_size])
-            k = len(chunk)
-            if k < batch_size:
-                chunk = chunk + [chunk[-1]] * (batch_size - k)
-            fut = fetcher.submit(fetch, dispatch(np.stack(chunk)))
+            bid = profiling.start_batch()
+            with profiling.batch(bid):
+                with profiling.span("stack"):
+                    chunk = list(images[i:i + batch_size])
+                    k = len(chunk)
+                    if k < batch_size:
+                        chunk = chunk + [chunk[-1]] * (batch_size - k)
+                    # `x` lives until the next batch is stacked: freed at
+                    # once, its 16 MB went back to the system every batch
+                    # and the next stack and pack paid the page faults (a
+                    # quarter of the loop's rate on an H100's host)
+                    x = np.stack(chunk)
+                handle = dispatch(x)
+            fut = fetcher.submit(profiling.in_batch(bid, fetch), handle)
             if pending is not None:
-                preds.extend(assemble(pending[0].result())[:pending[1]])
-            pending = (fut, k)
+                preds.extend(finish(*pending))
+            pending = (fut, k, bid)
             if log_every and (i // batch_size) % log_every == 0:
                 print(f"{min(i + batch_size, len(images))}/{len(images)}",
                       flush=True)
         if pending is not None:
-            preds.extend(assemble(pending[0].result())[:pending[1]])
+            preds.extend(finish(*pending))
     finally:
         fetcher.shutdown(wait=True)
     return preds

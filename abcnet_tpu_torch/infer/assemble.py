@@ -25,6 +25,7 @@ reduced maps to peaks.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -32,6 +33,7 @@ import numpy as np
 from ..chem.molblock import parse_molblock, write_molblock
 from ..chem.smiles import to_smiles
 from ..data import vocab
+from ..utils import profiling
 
 # Reference valence table (img2smiles2.py:32-34).
 ATOM_MAX_VALENCE = {
@@ -182,20 +184,30 @@ def assemble_smiles_native(peaks: Dict[str, np.ndarray], index: int,
     profile puts to_smiles at ~68% of host assembly). Falls back to the
     numpy/chem-stack path when the shared library is not built;
     test_native_smiles.py asserts exact string agreement between the
-    two."""
+    two. Where the thread records a batch (utils/profiling.py), the two
+    native calls' nanoseconds go to its counters `graph_ns` and
+    `smiles_ns`."""
     from .native import (assemble_graph_native, graph_to_smiles_native,
                          load_native)
     if load_native() is None:
         return assemble_smiles(peaks, index, overshoot_cap=overshoot_cap,
                                subcell=subcell, rematch_max=rematch_max,
                                vprune_score_max=vprune_score_max)
+    timed = profiling.recording()
+    t0 = time.perf_counter_ns() if timed else 0
     out = assemble_graph_native(peaks, index, overshoot_cap, subcell,
                                 rematch_max, vprune_score_max)
+    if timed:
+        t1 = time.perf_counter_ns()
+        profiling.count("graph_ns", t1 - t0)
     if out is None:
         return None
     pos, a_type, a_charge, a_hs, bonds, b_orders = out
-    return graph_to_smiles_native(pos, a_type, a_charge, a_hs,
-                                  bonds, b_orders)
+    smiles = graph_to_smiles_native(pos, a_type, a_charge, a_hs,
+                                    bonds, b_orders)
+    if timed:
+        profiling.count("smiles_ns", time.perf_counter_ns() - t1)
+    return smiles
 
 
 def assemble_smiles(peaks: Dict[str, np.ndarray], index: int,
@@ -444,15 +456,34 @@ def assemble_batch(peaks: Dict[str, np.ndarray], processes: int = 0,
     pool from make_assembly_pool (preferred in serving loops; overrides
     `processes`). subcell=False ignores any atom_sub/bond_sub refinement
     arrays (reference integer-cell matching).
+
+    Recorded in the batch's span `assemble` with its counters `images`,
+    `atoms` and `bonds` (the valid peaks) and `smiles_none`
+    (utils/profiling.py).
     """
-    host = {k: np.asarray(v) for k, v in peaks.items()}
+    with profiling.span("assemble"):
+        host = {k: np.asarray(v) for k, v in peaks.items()}
+        if (pool is None and processes and processes > 1
+                and host["atom_valid"].shape[0] > 1):
+            import multiprocessing as mp
+            with mp.get_context("spawn").Pool(processes) as tmp:
+                out = _assemble_rows(host, native, subcell, tmp,
+                                     rematch_max, vprune_score_max)
+        else:
+            out = _assemble_rows(host, native, subcell, pool, rematch_max,
+                                 vprune_score_max)
+    if profiling.recording():
+        profiling.count("images", len(out))
+        profiling.count("atoms", host["atom_valid"].sum())
+        profiling.count("bonds", host["bond_valid"].sum())
+        profiling.count("smiles_none", sum(s is None for s in out))
+    return out
+
+
+def _assemble_rows(host: Dict[str, np.ndarray], native: bool, subcell: bool,
+                   pool, rematch_max: float, vprune_score_max: float
+                   ) -> List[Optional[str]]:
     n = host["atom_valid"].shape[0]
-    if pool is None and processes and processes > 1 and n > 1:
-        import multiprocessing as mp
-        with mp.get_context("spawn").Pool(processes) as tmp:
-            return assemble_batch(host, native=native, subcell=subcell,
-                                  pool=tmp, rematch_max=rematch_max,
-                                  vprune_score_max=vprune_score_max)
     if pool is not None and n > 1:
         workers = getattr(pool, "n_workers", None) or getattr(
             pool, "_processes", None) or 2

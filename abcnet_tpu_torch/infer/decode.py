@@ -38,6 +38,7 @@ from ..data import vocab
 from ..data.pipeline import device_unpack_bits, pack_images
 from ..ops.peaks import nms_topk, nms_topk_pair
 from ..parallel.mesh import replicate_tree
+from ..utils import profiling
 from ..utils.device import resolve_device
 
 NO = vocab.NUM_OMEGA_BINS
@@ -577,35 +578,45 @@ def make_infer_pipeline(model, device="cuda",
     def dispatch(image_u8):
         """Async half: pack on the host, copy each row block to its
         device, enqueue the device work and the copies of the peak
-        buffers into pinned host memory. Returns a handle for `fetch`."""
-        bits = torch.from_numpy(pack_images(np.asarray(image_u8), threshold))
-        if bits.shape[0] % len(devices):
-            raise ValueError(f"batch {bits.shape[0]} does not divide over "
-                             f"{len(devices)} devices")
-        if devices[0].type == "cuda":
-            bits = bits.pin_memory()
-        blocks = bits.chunk(len(devices))
-        parts = []
-        for (rep, heads, qbundle, qpacked), dev, block in zip(
-                replicas, devices, blocks):
-            with torch.cuda.device(dev) if dev.type == "cuda" \
-                    else contextlib.nullcontext():
-                peaks = device_peaks(rep, block.to(dev, non_blocking=True),
-                                     heads, qbundle, cfg, qpacked)
-                if "spec" not in spec_cache:
-                    spec_cache["spec"] = peaks_spec(peaks)
-                parts.append(copy_to_host(*pack_peaks(peaks)))
+        buffers into pinned host memory. Returns a handle for `fetch`.
+        Spans (utils/profiling.py): `dispatch`, parent of `pack` (host
+        pack and pin) and `enqueue` (everything sent to the devices)."""
+        with profiling.span("dispatch"):
+            with profiling.span("pack"):
+                bits = torch.from_numpy(pack_images(np.asarray(image_u8),
+                                                    threshold))
+                if bits.shape[0] % len(devices):
+                    raise ValueError(f"batch {bits.shape[0]} does not "
+                                     f"divide over {len(devices)} devices")
+                if devices[0].type == "cuda":
+                    bits = bits.pin_memory()
+            with profiling.span("enqueue"):
+                parts = []
+                for (rep, heads, qbundle, qpacked), dev, block in zip(
+                        replicas, devices, bits.chunk(len(devices))):
+                    with torch.cuda.device(dev) if dev.type == "cuda" \
+                            else contextlib.nullcontext():
+                        peaks = device_peaks(
+                            rep, block.to(dev, non_blocking=True), heads,
+                            qbundle, cfg, qpacked)
+                        if "spec" not in spec_cache:
+                            spec_cache["spec"] = peaks_spec(peaks)
+                        parts.append(copy_to_host(*pack_peaks(peaks)))
         return parts
 
     def fetch(parts):
         """Blocking half: wait for the copies, return the host peak dict
         with the blocks' rows in order. The waits release the interpreter
         lock, so a fetch thread overlaps the main thread's dispatch and
-        assembly."""
-        arrays = [host_arrays(part) for part in parts]
-        hi = np.concatenate([i for i, _ in arrays])
-        hf = np.concatenate([f for _, f in arrays])
-        return unpack_peaks_host(hi, hf, spec_cache["spec"])
+        assembly. Spans: `fetch`, parent of `d2h_wait` (the copies) and
+        `unpack` (the dict)."""
+        with profiling.span("fetch"):
+            with profiling.span("d2h_wait"):
+                arrays = [host_arrays(part) for part in parts]
+            with profiling.span("unpack"):
+                hi = np.concatenate([i for i, _ in arrays])
+                hf = np.concatenate([f for _, f in arrays])
+                return unpack_peaks_host(hi, hf, spec_cache["spec"])
 
     def run(image_u8):
         return fetch(dispatch(image_u8))

@@ -1,6 +1,6 @@
 """The torch port's host utilities against abcnet_tpu's, on the CPU: Otsu
 (the numpy copy and the tensor version against otsu_threshold and
-otsu_threshold_jax), StepTimer, the perfect logits of a fixture molecule
+otsu_threshold_jax), the perfect logits of a fixture molecule
 (equal to the JAX package's, exact) and the viz overlays (equal images),
 and torch.profiler's chrome trace."""
 
@@ -36,15 +36,6 @@ def test_otsu_matches_jax(which):
                                   jb.binarize_otsu(img))
     got = binarize.otsu_threshold_torch(torch.from_numpy(img))
     assert int(got) == int(jb.otsu_threshold_jax(jnp.asarray(img)))
-
-
-def test_step_timer_rates():
-    t = profiling.StepTimer(batch_size=4, window=10)
-    assert t.ms_per_step() is None and t.images_per_sec() is None
-    for i in range(5):
-        t._times.append(100.0 + i * 0.05)   # 50 ms/step
-    assert abs(t.ms_per_step() - 50.0) < 1e-6
-    assert abs(t.images_per_sec() - 80.0) < 1e-6
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
