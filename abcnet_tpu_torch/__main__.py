@@ -43,6 +43,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
 
@@ -61,16 +62,28 @@ def img2smiles_loop(run, images: Sequence[np.ndarray], batch_size: int,
     `assemble`, what that function returns for each row of a batch's
     host peak dict (in place of infer.assemble.assemble_batch).
 
-    Three-way overlap: batch i+1's device work is dispatched before batch
-    i is assembled, batch i+1's peaks are fetched into pinned host memory
-    on a worker thread, and the main thread assembles batch i meanwhile,
-    so the steady state is max(device, fetch, assembly), not their sum.
-    The trailing chunk is padded to the full batch with its last image
-    and the padding dropped afterwards, so every row is scored.
+    Three-way overlap: the loop's thread stacks and dispatches batch i+1
+    (host pack, the device program's launches) while the device runs
+    and a worker thread fetches each batch's peaks into pinned host
+    memory and assembles them. The worker's task for a batch is its
+    fetch, then `assemble`: the native assembler is one call a batch with
+    the interpreter lock released, so assembly runs beside the next
+    batch's stack, pack and launches, and the steady state is
+    max(loop thread, device, worker), not their sum. `assemble` (and the
+    default, assemble_batch) therefore runs on the worker; it must be a
+    function of its peak dict alone. The loop's thread takes a batch's
+    result only once more than two batches are pending, so at most two
+    are: one assembling, one on the device or fetching. Results keep
+    batch order, and an error in a task reaches the caller. The
+    trailing chunk is padded to the full batch with its last image and
+    the padding dropped afterwards, so every row is scored.
 
     Under a torch.profiler profile each batch's spans and counters are
     recorded (utils/profiling.py; `profiling.trace` writes them out):
-    here `stack` and `wait`, which waits for the fetch thread."""
+    here `stack` and `wait` (the loop's thread waiting for the batch's
+    assembly) and the counter `assembly_ready` (1 where the batch was
+    assembled before the loop asked for it); the worker's `fetch` and
+    `assemble` carry the batch too."""
     from .infer.assemble import assemble_batch
     from .utils import profiling
 
@@ -80,15 +93,18 @@ def img2smiles_loop(run, images: Sequence[np.ndarray], batch_size: int,
     dispatch = getattr(run, "dispatch", run)
     fetch = getattr(run, "fetch", lambda h: h)
 
-    def finish(fut, k, bid):
+    def work(handle, k):
+        return assemble(fetch(handle))[:k]
+
+    def collect(fut, bid):
         with profiling.batch(bid):
+            profiling.count("assembly_ready", fut.done())
             with profiling.span("wait"):
-                peaks = fut.result()
-            return assemble(peaks)[:k]
+                return fut.result()
 
     preds: List = []
-    pending = None                 # (future -> host peaks, n_real, batch id)
-    fetcher = ThreadPoolExecutor(max_workers=1)
+    pending = deque()               # (future -> the batch's rows, batch id)
+    worker = ThreadPoolExecutor(max_workers=1)
     try:
         for i in range(0, len(images), batch_size):
             bid = profiling.start_batch()
@@ -104,17 +120,17 @@ def img2smiles_loop(run, images: Sequence[np.ndarray], batch_size: int,
                     # quarter of the loop's rate on an H100's host)
                     x = np.stack(chunk)
                 handle = dispatch(x)
-            fut = fetcher.submit(profiling.in_batch(bid, fetch), handle)
-            if pending is not None:
-                preds.extend(finish(*pending))
-            pending = (fut, k, bid)
+            pending.append((worker.submit(profiling.in_batch(bid, work),
+                                          handle, k), bid))
+            if len(pending) > 2:
+                preds.extend(collect(*pending.popleft()))
             if log_every and (i // batch_size) % log_every == 0:
                 print(f"{min(i + batch_size, len(images))}/{len(images)}",
                       flush=True)
-        if pending is not None:
-            preds.extend(finish(*pending))
+        while pending:
+            preds.extend(collect(*pending.popleft()))
     finally:
-        fetcher.shutdown(wait=True)
+        worker.shutdown(wait=True, cancel_futures=True)
     return preds
 
 

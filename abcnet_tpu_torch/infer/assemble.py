@@ -25,7 +25,6 @@ reduced maps to peaks.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -171,43 +170,6 @@ def _graph_to_smiles_once(types, charges, positions, hs, bond_pairs_1b,
         return to_smiles(mol, canonical=True)
     except Exception:
         return None
-
-
-def assemble_smiles_native(peaks: Dict[str, np.ndarray], index: int,
-                           overshoot_cap: float = OVERSHOOT_CAP,
-                           subcell: bool = True,
-                           rematch_max: float = REMATCH_MAX,
-                           vprune_score_max: float = VPRUNE_SCORE_MAX
-                           ) -> Optional[str]:
-    """C++ fast path: graph assembly AND the canonical-SMILES tail in
-    native code (native/assemble.cpp + native/smiles.cpp — the decode
-    profile puts to_smiles at ~68% of host assembly). Falls back to the
-    numpy/chem-stack path when the shared library is not built;
-    test_native_smiles.py asserts exact string agreement between the
-    two. Where the thread records a batch (utils/profiling.py), the two
-    native calls' nanoseconds go to its counters `graph_ns` and
-    `smiles_ns`."""
-    from .native import (assemble_graph_native, graph_to_smiles_native,
-                         load_native)
-    if load_native() is None:
-        return assemble_smiles(peaks, index, overshoot_cap=overshoot_cap,
-                               subcell=subcell, rematch_max=rematch_max,
-                               vprune_score_max=vprune_score_max)
-    timed = profiling.recording()
-    t0 = time.perf_counter_ns() if timed else 0
-    out = assemble_graph_native(peaks, index, overshoot_cap, subcell,
-                                rematch_max, vprune_score_max)
-    if timed:
-        t1 = time.perf_counter_ns()
-        profiling.count("graph_ns", t1 - t0)
-    if out is None:
-        return None
-    pos, a_type, a_charge, a_hs, bonds, b_orders = out
-    smiles = graph_to_smiles_native(pos, a_type, a_charge, a_hs,
-                                    bonds, b_orders)
-    if timed:
-        profiling.count("smiles_ns", time.perf_counter_ns() - t1)
-    return smiles
 
 
 def assemble_smiles(peaks: Dict[str, np.ndarray], index: int,
@@ -417,13 +379,12 @@ def _assemble_range(host: Dict[str, np.ndarray], lo: int, hi: int,
                     rematch_max: float = REMATCH_MAX,
                     vprune_score_max: float = VPRUNE_SCORE_MAX
                     ) -> List[Optional[str]]:
-    """Worker task: assemble images [lo, hi) of a peak batch. A range
-    per worker (instead of one task per image) pickles the batch dict
-    once per worker instead of once per image."""
-    fn = assemble_smiles_native if native else assemble_smiles
-    return [fn(host, i, subcell=subcell, rematch_max=rematch_max,
-               vprune_score_max=vprune_score_max)
-            for i in range(lo, hi)]
+    """Worker task: assemble images [lo, hi) of a peak batch, as the
+    serial path assembles a batch. A range per worker (instead of one
+    task per image) pickles the batch dict once per worker instead of
+    once per image."""
+    return _assemble_rows({k: v[lo:hi] for k, v in host.items()}, native,
+                          subcell, None, rematch_max, vprune_score_max)
 
 
 def make_assembly_pool(processes: int):
@@ -450,16 +411,21 @@ def assemble_batch(peaks: Dict[str, np.ndarray], processes: int = 0,
     """Decode every image in a batch of peak arrays (host numpy).
 
     native=True uses the C++ assembler when built (falls back
-    transparently). processes > 1 fans images out over a process pool —
-    the multi_proc_img2smiles2.py Pool(32) role; with the on-device peak
-    reduction the serial path is usually fast enough. pool: a persistent
-    pool from make_assembly_pool (preferred in serving loops; overrides
-    `processes`). subcell=False ignores any atom_sub/bond_sub refinement
-    arrays (reference integer-cell matching).
+    transparently): the whole batch, or under a pool each worker's range
+    of rows, is one native call (native.assemble_smiles_batch_native),
+    which releases the interpreter lock from its first row to its last,
+    so it runs beside the serving loop's thread. processes > 1 fans images out over a
+    process pool — the multi_proc_img2smiles2.py Pool(32) role; with the
+    on-device peak reduction the serial path is usually fast enough.
+    pool: a persistent pool from make_assembly_pool (preferred in serving
+    loops; overrides `processes`). subcell=False ignores any
+    atom_sub/bond_sub refinement arrays (reference integer-cell
+    matching).
 
     Recorded in the batch's span `assemble` with its counters `images`,
-    `atoms` and `bonds` (the valid peaks) and `smiles_none`
-    (utils/profiling.py).
+    `atoms` and `bonds` (the valid peaks) and `smiles_none`, and on the
+    serial native path `graph_ns` and `smiles_ns`, the native time in graph
+    assembly and in SMILES writing (utils/profiling.py).
     """
     with profiling.span("assemble"):
         host = {k: np.asarray(v) for k, v in peaks.items()}
@@ -495,7 +461,15 @@ def _assemble_rows(host: Dict[str, np.ndarray], native: bool, subcell: bool,
         for part in pool.starmap(_assemble_range, ranges):
             out.extend(part)
         return out
-    fn = assemble_smiles_native if native else assemble_smiles
-    return [fn(host, i, subcell=subcell, rematch_max=rematch_max,
-               vprune_score_max=vprune_score_max)
+    if native:
+        from .native import assemble_smiles_batch_native
+        got = assemble_smiles_batch_native(host, OVERSHOOT_CAP, subcell,
+                                           rematch_max, vprune_score_max)
+        if got is not None:
+            smiles, graph_ns, smiles_ns = got
+            profiling.count("graph_ns", graph_ns)
+            profiling.count("smiles_ns", smiles_ns)
+            return smiles
+    return [assemble_smiles(host, i, subcell=subcell, rematch_max=rematch_max,
+                            vprune_score_max=vprune_score_max)
             for i in range(n)]

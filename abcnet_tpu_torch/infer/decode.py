@@ -607,9 +607,9 @@ def make_infer_pipeline(model, device="cuda",
     def fetch(parts):
         """Blocking half: wait for the copies, return the host peak dict
         with the blocks' rows in order. The waits release the interpreter
-        lock, so a fetch thread overlaps the main thread's dispatch and
-        assembly. Spans: `fetch`, parent of `d2h_wait` (the copies) and
-        `unpack` (the dict)."""
+        lock, so a worker thread's fetch (and assembly) overlaps the main
+        thread's dispatch. Spans: `fetch`, parent of `d2h_wait` (the
+        copies) and `unpack` (the dict)."""
         with profiling.span("fetch"):
             with profiling.span("d2h_wait"):
                 arrays = [host_arrays(part) for part in parts]

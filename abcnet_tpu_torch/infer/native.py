@@ -1,11 +1,13 @@
 """ctypes bindings for the native graph assembler (native/assemble.cpp).
 
 The library builds at first use from the repo's `native/assemble.cpp`
-and `native/smiles.cpp` into the port's gitignored build directory, with
-the flags of `native/Makefile` (utils/build.py). `load_native()` returns
-None when it cannot be built (no g++), and callers fall back to the
-pure-numpy path in infer/assemble.py. Both implement the same reference
-semantics (img2smiles2.py:171-311); the tests assert they agree.
+and `native/smiles.cpp`, with the port's batched entry point
+`csrc/assemble_batch.cpp`, into the port's gitignored build directory,
+with the flags of `native/Makefile` (utils/build.py). `load_native()`
+returns None when it cannot be built (no g++), and callers fall back to
+the pure-numpy path in infer/assemble.py. Both implement the same
+reference semantics (img2smiles2.py:171-311); the tests assert they
+agree.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -21,8 +23,30 @@ from ..utils import build
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
-_F32P = ctypes.POINTER(ctypes.c_float)
-_F64P = ctypes.POINTER(ctypes.c_double)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+# The peak arrays of assemble_smiles_batch, in the order of its `Field`
+# enum (csrc/assemble_batch.cpp): (key, dtype, the key whose shape gives
+# its rows and slots, whether a slot is a pair). The last three may be
+# absent.
+BATCH_FIELDS = (
+    ("atom_xy", np.int32, "atom_valid", True),
+    ("atom_type", np.int32, "atom_valid", False),
+    ("atom_charge", np.int32, "atom_valid", False),
+    ("atom_hs", np.int32, "atom_valid", False),
+    ("atom_valid", np.uint8, "atom_valid", False),
+    ("bond_xy", np.int32, "bond_valid", True),
+    ("bond_delta", np.float32, "bond_valid", True),
+    ("bond_type", np.int32, "bond_valid", False),
+    ("bond_valid", np.uint8, "bond_valid", False),
+    ("bond_score", np.float32, "bond_valid", False),
+    ("atom_sub", np.float32, "atom_valid", True),
+    ("bond_sub", np.float32, "bond_valid", True),
+)
+_OPTIONAL = ("bond_score", "atom_sub", "bond_sub")
+# First size of assemble_smiles_batch's SMILES buffer, bytes a row (the
+# serving mix's SMILES average some 50).
+_SMILES_BYTES_A_ROW = 256
 
 
 # ABI version this binding targets; must match
@@ -52,20 +76,13 @@ def load_native() -> Optional[ctypes.CDLL]:
             f"native assembler: ABI version {version} != expected "
             f"{_ABI_VERSION}. Falling back to the numpy assembler.")
         return None
-    lib.assemble_graph.restype = ctypes.c_int32
-    lib.assemble_graph.argtypes = [
-        _I32P, _I32P, _I32P, _I32P, _U8P, ctypes.c_int32,
-        _I32P, _F32P, _I32P, _U8P, ctypes.c_int32,
-        _F64P, _I32P, _I32P, _I32P, _I32P, _I32P, _I32P,
-        ctypes.c_double, _F32P, _F32P, ctypes.c_double,
-        _F32P, ctypes.c_double,
-    ]
-    lib.graph_to_smiles.restype = ctypes.c_int32
-    lib.graph_to_smiles.argtypes = [
-        _F64P, _I32P, _I32P, _I32P, ctypes.c_int32,
-        _I32P, _I32P, ctypes.c_int32,
+    lib.assemble_smiles_batch.restype = ctypes.c_int64
+    lib.assemble_smiles_batch.argtypes = [
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_void_p), _I64P,
+        ctypes.c_double, ctypes.c_int32, ctypes.c_double, ctypes.c_double,
         ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_char_p, ctypes.c_int32,
+        _U8P, ctypes.c_int64, _I64P, _I32P, _I64P,
     ]
     return lib
 
@@ -74,116 +91,70 @@ def _p(arr, typ):
     return arr.ctypes.data_as(typ)
 
 
-def graph_to_smiles_native(pos: np.ndarray, type_cls: np.ndarray,
-                           charge_cls: np.ndarray, hs: np.ndarray,
-                           bond_pairs: np.ndarray, orders: np.ndarray,
-                           perceive_stereo: bool = True,
-                           salvage_aromatic: bool = True) -> Optional[str]:
-    """C++ canonical-SMILES tail (native/smiles.cpp): decoded graph ->
-    molblock semantics -> sanitize -> stereo -> canonical isomeric
-    SMILES. Inputs use assemble_graph's output conventions (0-based bond
-    indices, molblock orders 1..6). Returns None both when the molecule
-    is rejected (parity with the Python path returning None) and when
-    the library is unavailable — callers distinguish via load_native().
-    """
+def _rows(key, a, dtype, shape) -> Tuple[np.ndarray, int]:
+    """`a` as `dtype` (np.asarray's conversion) with each row contiguous, copied only where it is not, and its row stride
+    in elements. Raises where its shape is not `shape`."""
+    a = np.asarray(a, dtype)
+    if a.shape != shape:
+        raise ValueError(f"peaks[{key!r}] has shape {a.shape}, expected "
+                         f"{shape}")
+    if (a.strides[0] % a.itemsize
+            or not (a.shape[0] == 0 or a[0].flags.c_contiguous)):
+        a = np.ascontiguousarray(a)
+    return a, a.strides[0] // a.itemsize
+
+
+def assemble_smiles_batch_native(peaks: Dict[str, np.ndarray],
+                                 overshoot_cap: float, subcell: bool,
+                                 rematch_max: float, vprune_score_max: float
+                                 ) -> Optional[Tuple[List[Optional[str]],
+                                                     int, int]]:
+    """Every row of a peak batch through the C++ assembler and SMILES
+    writer in one call (csrc/assemble_batch.cpp), which holds no Python
+    object and so runs with the interpreter lock released. Returns (one
+    SMILES or None a row; the nanoseconds in graph assembly; in SMILES
+    writing), or None where the library is unavailable. Stereo perception
+    and the aromatic salvage are on. The SMILES buffer starts at
+    `_SMILES_BYTES_A_ROW` bytes a row; a call that finds it short is made
+    once more with the size it asked for."""
     lib = load_native()
     if lib is None:
         return None
-    pos = np.ascontiguousarray(pos, np.float64)
-    type_cls = np.ascontiguousarray(type_cls, np.int32)
-    charge_cls = np.ascontiguousarray(charge_cls, np.int32)
-    hs = np.ascontiguousarray(hs, np.int32)
-    bond_pairs = np.ascontiguousarray(bond_pairs, np.int32)
-    orders = np.ascontiguousarray(orders, np.int32)
-    na = np.int32(type_cls.shape[0])
-    nb = np.int32(orders.shape[0])
-    cap = 4096
-    buf = ctypes.create_string_buffer(cap)
-    n = lib.graph_to_smiles(
-        _p(pos, _F64P), _p(type_cls, _I32P), _p(charge_cls, _I32P),
-        _p(hs, _I32P), na, _p(bond_pairs, _I32P), _p(orders, _I32P), nb,
-        np.int32(1 if perceive_stereo else 0),
-        np.int32(1 if salvage_aromatic else 0), buf, np.int32(cap))
-    if n == -2:  # buffer too small: retry once with a generous cap
-        cap = 1 << 20
-        buf = ctypes.create_string_buffer(cap)
-        n = lib.graph_to_smiles(
-            _p(pos, _F64P), _p(type_cls, _I32P), _p(charge_cls, _I32P),
-            _p(hs, _I32P), na, _p(bond_pairs, _I32P), _p(orders, _I32P),
-            nb, np.int32(1 if perceive_stereo else 0),
-            np.int32(1 if salvage_aromatic else 0), buf, np.int32(cap))
-    if n < 0:
-        return None
-    return buf.value.decode("ascii")
-
-
-def assemble_graph_native(peaks: Dict[str, np.ndarray], index: int,
-                          overshoot_cap: Optional[float] = None,
-                          subcell: bool = True,
-                          rematch_max: Optional[float] = None,
-                          vprune_score_max: Optional[float] = None
-                          ) -> Optional[Tuple]:
-    """Run the C++ assembler for one image. Returns
-    (atom_pos [A,2], atom_type [A], atom_charge [A], atom_hs [A],
-     bonds [B,2] 0-based, bond_orders [B]) or None.
-
-    subcell: when the peaks carry atom_sub/bond_sub offsets
-    (infer/decode.py:subcell_offsets), dedup + endpoint matching use the
-    refined coordinates; atom_pos still returns integer cells."""
-    lib = load_native()
-    if lib is None:
-        return None
-    if overshoot_cap is None:
-        from .assemble import OVERSHOOT_CAP  # single source of truth
-        overshoot_cap = OVERSHOOT_CAP
-    if rematch_max is None:
-        from .assemble import REMATCH_MAX
-        rematch_max = REMATCH_MAX
-    if vprune_score_max is None:
-        from .assemble import VPRUNE_SCORE_MAX
-        vprune_score_max = VPRUNE_SCORE_MAX
-
-    axy = np.ascontiguousarray(peaks["atom_xy"][index], np.int32)
-    at = np.ascontiguousarray(peaks["atom_type"][index], np.int32)
-    ac = np.ascontiguousarray(peaks["atom_charge"][index], np.int32)
-    ah = np.ascontiguousarray(peaks["atom_hs"][index], np.int32)
-    av = np.ascontiguousarray(peaks["atom_valid"][index], np.uint8)
-    bxy = np.ascontiguousarray(peaks["bond_xy"][index], np.int32)
-    bd = np.ascontiguousarray(peaks["bond_delta"][index], np.float32)
-    bt = np.ascontiguousarray(peaks["bond_type"][index], np.int32)
-    bv = np.ascontiguousarray(peaks["bond_valid"][index], np.uint8)
-    bsc = (np.ascontiguousarray(peaks["bond_score"][index], np.float32)
-           if "bond_score" in peaks else None)
-    ka = np.int32(axy.shape[0])
-    kb = np.int32(bxy.shape[0])
-
-    out_pos = np.zeros((ka, 2), np.float64)
-    out_type = np.zeros(ka, np.int32)
-    out_charge = np.zeros(ka, np.int32)
-    out_hs = np.zeros(ka, np.int32)
-    out_bonds = np.zeros((kb, 2), np.int32)
-    out_btype = np.zeros(kb, np.int32)
-    n_bonds = np.zeros(1, np.int32)
-
-    asub = bsub = None
-    if subcell and "atom_sub" in peaks:
-        asub = np.ascontiguousarray(peaks["atom_sub"][index], np.float32)
-        bsub = np.ascontiguousarray(peaks["bond_sub"][index], np.float32)
-    null_f32 = ctypes.cast(None, _F32P)
-    na = lib.assemble_graph(
-        _p(axy, _I32P), _p(at, _I32P), _p(ac, _I32P), _p(ah, _I32P),
-        _p(av, _U8P), ka,
-        _p(bxy, _I32P), _p(bd, _F32P), _p(bt, _I32P), _p(bv, _U8P), kb,
-        _p(out_pos, _F64P), _p(out_type, _I32P), _p(out_charge, _I32P),
-        _p(out_hs, _I32P), _p(out_bonds, _I32P), _p(out_btype, _I32P),
-        _p(n_bonds, _I32P), ctypes.c_double(overshoot_cap),
-        _p(asub, _F32P) if asub is not None else null_f32,
-        _p(bsub, _F32P) if bsub is not None else null_f32,
-        ctypes.c_double(rematch_max),
-        _p(bsc, _F32P) if bsc is not None else null_f32,
-        ctypes.c_double(vprune_score_max))
-    if na < 0:
-        return None
-    nb = int(n_bonds[0])
-    return (out_pos[:na], out_type[:na], out_charge[:na], out_hs[:na],
-            out_bonds[:nb], out_btype[:nb])
+    n, ka = np.shape(peaks["atom_valid"])
+    kb = np.shape(peaks["bond_valid"])[1]
+    if n == 0:
+        return [], 0, 0
+    rows = {"atom_valid": (n, ka), "bond_valid": (n, kb)}
+    held, ptrs = [], (ctypes.c_void_p * len(BATCH_FIELDS))()
+    strides = np.zeros(len(BATCH_FIELDS), np.int64)
+    for i, (key, dtype, like, pair) in enumerate(BATCH_FIELDS):
+        if key in _OPTIONAL and key not in peaks:
+            continue
+        a, strides[i] = _rows(key, peaks[key], dtype,
+                              rows[like] + ((2,) if pair else ()))
+        held.append(a)                # alive until the call returns
+        ptrs[i] = a.ctypes.data
+    offset = np.zeros(n, np.int64)
+    length = np.zeros(n, np.int32)
+    ns = np.zeros(2, np.int64)
+    cap = _SMILES_BYTES_A_ROW * n
+    graph_ns = smiles_ns = 0
+    for _ in range(2):
+        out = np.empty(cap, np.uint8)
+        need = lib.assemble_smiles_batch(
+            n, ka, kb, ptrs, _p(strides, _I64P), overshoot_cap,
+            1 if subcell else 0, rematch_max, vprune_score_max, 1, 1,
+            _p(out, _U8P), cap, _p(offset, _I64P), _p(length, _I32P),
+            _p(ns, _I64P))
+        graph_ns += int(ns[0])
+        smiles_ns += int(ns[1])
+        if need <= cap:
+            break
+        cap = need
+    else:
+        raise RuntimeError("assemble_smiles_batch found its second buffer "
+                           "short")
+    text = out[:need].tobytes()
+    return ([None if m < 0 else text[o:o + m].decode("ascii")
+             for o, m in zip(offset.tolist(), length.tolist())],
+            graph_ns, smiles_ns)

@@ -8,7 +8,8 @@ into `_build/<name>-<hash>.so`. The sources expose a plain C interface
 (pointers and the stream as void*, cudaGetLastError() returned), so no
 PyTorch header is compiled and a source builds in seconds. The host
 assembler (`native/assemble.cpp` + `native/smiles.cpp` at the repo
-root) builds the same way with g++ and the flags of `native/Makefile`.
+root, with the port's batched entry point `csrc/assemble_batch.cpp`)
+builds the same way with g++ and the flags of `native/Makefile`.
 
 `_build/` is listed in .gitignore. A library's file name carries a hash
 of its sources and command, so a changed source rebuilds and an
@@ -57,6 +58,7 @@ def _job(name: str) -> Tuple[List[str], List[str]]:
     if name == NATIVE:
         srcs = [os.path.join(REPO, "native", f)
                 for f in ("assemble.cpp", "smiles.cpp")]
+        srcs.append(os.path.join(PKG, "csrc", "assemble_batch.cpp"))
         return ["g++", *GXX_FLAGS], srcs
     if name not in KERNELS:
         raise ValueError(f"unknown native library {name!r}")

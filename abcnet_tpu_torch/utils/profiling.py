@@ -11,7 +11,7 @@
     `start_batch()`, which hands out a batch id only while a
     torch.profiler profile is active on the loop's thread; without one
     every span and counter is a no-op. `in_batch(bid, fn)` carries the
-    batch over to the fetch thread, where torch.profiler records
+    batch over to the loop's worker thread, where torch.profiler records
     nothing of its own. `spans()`, `counters()` and `clear()` read and
     empty what was recorded (bounded: the oldest go first).
 
@@ -24,18 +24,22 @@ thread unless named):
     pack      binarize and bit-pack on the host, pin
     enqueue   the copy to the device, the device program's launches,
               the copies of the peak buffers back
-  fetch     (fetch thread) parent of
+  fetch     (worker thread) parent of
     d2h_wait  waiting for the device and the copies
     unpack    the host peak dict from the copied buffers
-  wait      the loop waiting for the fetch thread's peak dict
-  assemble  host assembly of the batch's SMILES
+  assemble  (worker thread, after the fetch) host assembly of the
+            batch's SMILES
+  wait      the loop waiting for the worker's fetch and assembly of the
+            batch, once two later batches are dispatched
 
 and its counters: `images` (rows assembled), `atoms` and `bonds` (valid
-peaks handed to assembly), `smiles_none` (rows with no SMILES), and on
-the serial native assembly path `graph_ns` and `smiles_ns` (the summed
-time of graph assembly and of SMILES writing). While a profile is
-active, each span of the loop's thread is also an `abcnet.<name>` range
-of the chrome trace, beside the kernels it launched.
+peaks handed to assembly), `smiles_none` (rows with no SMILES), on the
+serial native assembly path `graph_ns` and `smiles_ns` (the summed
+native time of graph assembly and of SMILES writing), and on the loop's
+thread `assembly_ready` (1 where the worker was done with the batch when
+the loop asked for it). While a profile is active, each span of the
+loop's thread is also an `abcnet.<name>` range of the chrome trace,
+beside the kernels it launched.
 """
 
 from __future__ import annotations

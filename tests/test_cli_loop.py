@@ -4,11 +4,16 @@ The loop is double-buffered: batch i+1's device program is dispatched
 before batch i's host assembly (overlap — the reference serializes the
 two, img2smiles2.py:52-317). These tests monkeypatch the device and
 assembly stages to verify ordering, trailing-batch padding (the
-reference scores every row, img2smiles2.py:342-344) and result order.
+reference scores every row, img2smiles2.py:342-344) and result order:
+first the JAX package's CLI, then the port's loop
+(abcnet_tpu_torch.__main__.img2smiles_loop), which assembles each batch
+on its fetch worker and keeps at most two batches pending.
 """
 
 import argparse
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -109,3 +114,103 @@ def test_smaller_than_batch_dataset(tmp_path, monkeypatch, capsys):
     import pandas as pd
     df = pd.read_csv(out)
     assert len(df) == 3  # ADVICE r1: used to produce an empty csv
+
+
+# ---------------------------------------------------------------------------
+# The port's loop: fetch and assembly on the worker thread
+# ---------------------------------------------------------------------------
+
+class _TaggedPipeline:
+    """dispatch -> first pixel of each image (the batch's tag rows); fetch
+    on the worker thread. Counts the batches dispatched and the most
+    that were dispatched before a dispatch and not yet assembled."""
+
+    def __init__(self, assembled=None):
+        self.assembled = assembled
+        self.dispatched = []
+        self.fetch_threads = set()
+        self.most_outstanding = 0
+
+    def dispatch(self, batch):
+        if self.assembled is not None:
+            with self.assembled["lock"]:
+                done = self.assembled["n"]
+            self.most_outstanding = max(self.most_outstanding,
+                                        len(self.dispatched) - done)
+        self.dispatched.append(len(batch))
+        return batch[:, 0, 0].copy()
+
+    def fetch(self, handle):
+        self.fetch_threads.add(threading.get_ident())
+        return handle
+
+
+def _torch_loop(run, n_images, bs, assemble):
+    from abcnet_tpu_torch import __main__ as tcli
+    images = [np.full((4, 4), i, np.uint8) for i in range(n_images)]
+    return tcli.img2smiles_loop(run, images, bs, log_every=0,
+                                assemble=assemble)
+
+
+@pytest.mark.parametrize("n_images,bs", [(7, 3), (12, 4), (2, 5)])
+def test_torch_loop_batch_order_and_padding(n_images, bs):
+    run = _TaggedPipeline()
+    got = _torch_loop(run, n_images, bs,
+                      lambda peaks: [str(v) for v in peaks])
+    assert got == [str(i) for i in range(n_images)]
+    assert run.dispatched == [bs] * -(-n_images // bs)   # all padded
+
+
+def test_torch_loop_assembles_off_the_loop_thread():
+    run, threads = _TaggedPipeline(), []
+
+    def assemble(peaks):
+        threads.append(threading.get_ident())
+        return list(peaks)
+    _torch_loop(run, 9, 2, assemble)
+    assert len(threads) == 5
+    assert threading.get_ident() not in threads
+    # one worker fetches and assembles every batch
+    assert set(threads) == run.fetch_threads and len(set(threads)) == 1
+
+
+def test_torch_loop_keeps_at_most_two_batches_pending():
+    """A batch is collected only once two later ones are dispatched: when
+    batch n is dispatched, batches 0..n-3 were collected (so assembled),
+    and with assembly slower than dispatch two are still outstanding."""
+    assembled = {"lock": threading.Lock(), "n": 0}
+    run = _TaggedPipeline(assembled)
+
+    def assemble(peaks):
+        time.sleep(0.02)
+        with assembled["lock"]:
+            assembled["n"] += 1
+        return list(peaks)
+    got = _torch_loop(run, 16, 2, assemble)
+    assert got == list(range(16))
+    assert run.most_outstanding == 2
+
+
+@pytest.mark.parametrize("stage", ["fetch", "assemble"])
+def test_torch_loop_error_reaches_the_caller(stage):
+    """An error in a batch's fetch or assembly is raised by the loop, and
+    the worker thread is gone once it returns."""
+    workers = []
+
+    class Broken(_TaggedPipeline):
+        def fetch(self, handle):
+            workers.append(threading.current_thread())
+            if stage == "fetch" and handle[0] == 2:
+                raise RuntimeError("fetch failed")
+            return handle
+
+    def assemble(peaks):
+        if stage == "assemble" and peaks[0] == 2:
+            raise RuntimeError("assemble failed")
+        return list(peaks)
+    with pytest.raises(RuntimeError, match=f"{stage} failed"):
+        _torch_loop(Broken(), 12, 2, assemble)
+    assert workers
+    for t in workers:
+        t.join(timeout=10)
+        assert not t.is_alive()

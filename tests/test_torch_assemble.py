@@ -2,7 +2,8 @@
 
 Same peak dicts in, the same SMILES out (exact string equality), for the
 numpy assembler and for the native one (which the port builds at first
-use into its own build directory).
+use into its own build directory), in the one native call a batch that
+the serving loop makes and in a process pool's ranges of rows.
 """
 
 import random
@@ -19,6 +20,9 @@ from abcnet_tpu.infer import extract_peaks
 from abcnet_tpu.utils.diagnostics import fake_logits_from_targets
 from abcnet_tpu_torch.eval import scoring
 from abcnet_tpu_torch.infer import assemble
+from abcnet_tpu_torch.infer import native
+from abcnet_tpu_torch.infer.decode import (pack_peaks, peaks_spec,
+                                           unpack_peaks_host)
 from abcnet_tpu_torch.infer.native import load_native
 from torch_parity import FIXTURE
 
@@ -69,6 +73,89 @@ def test_native_assembler_matches_jax(peaks):
     want = jax_assemble.assemble_batch(peaks, native=False)
     assert assemble.assemble_batch(peaks, native=True) == want
     assert jax_assemble.assemble_batch(peaks, native=True) == want
+
+
+@pytest.fixture(scope="module")
+def rows(peaks):
+    """The corpus batch with two rows that have no SMILES among its rows:
+    one with no valid atom, one with no valid bond."""
+    no_atom = {k: v[:1].copy() for k, v in peaks.items()}
+    no_atom["atom_valid"][:] = False
+    no_bond = {k: v[1:2].copy() for k, v in peaks.items()}
+    no_bond["bond_valid"][:] = False
+    head = {k: v[:4] for k, v in peaks.items()}
+    tail = {k: v[4:] for k, v in peaks.items()}
+    return _batch([head, no_atom, tail, no_bond])
+
+
+def _as_fetched(peaks):
+    """`peaks` in the layout the serving pipeline's fetch hands over:
+    views with row strides into two packed buffers, bools copied."""
+    import torch
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in peaks.items()}
+    return unpack_peaks_host(*pack_peaks(tensors), peaks_spec(tensors))
+
+
+# (overshoot_cap, rematch_max, vprune_score_max)
+SETTINGS = {
+    "constants": (assemble.OVERSHOOT_CAP, assemble.REMATCH_MAX,
+                  assemble.VPRUNE_SCORE_MAX),
+    "no_overshoot_cap": (0.0, assemble.REMATCH_MAX,
+                         assemble.VPRUNE_SCORE_MAX),
+    "no_rematch": (assemble.OVERSHOOT_CAP, 0.0, assemble.VPRUNE_SCORE_MAX),
+    "no_vprune": (assemble.OVERSHOOT_CAP, assemble.REMATCH_MAX, 0.0),
+    "reference": (0.0, 0.0, 0.0),
+}
+
+
+@pytest.mark.parametrize("subcell", [True, False])
+@pytest.mark.parametrize("setting", list(SETTINGS))
+def test_batched_native_call_matches_every_assembler(rows, setting, subcell,
+                                                     monkeypatch):
+    """One native call for the whole batch gives, byte for byte, the
+    numpy assembler's strings and the JAX package's, per row through its
+    two ctypes calls and in numpy, from contiguous rows and from the
+    fetched layout, with a buffer large enough at once and with one far
+    too short (the retry)."""
+    assert load_native() is not None, "g++ build of the port's library"
+    cap, rematch, vprune = SETTINGS[setting]
+    kw = dict(overshoot_cap=cap, subcell=subcell, rematch_max=rematch,
+              vprune_score_max=vprune)
+    n = rows["atom_valid"].shape[0]
+    got, graph_ns, smiles_ns = native.assemble_smiles_batch_native(
+        rows, cap, subcell, rematch, vprune)
+    assert graph_ns > 0 and smiles_ns > 0
+    assert got == [assemble.assemble_smiles(rows, i, **kw)
+                   for i in range(n)]
+    assert got == [jax_assemble.assemble_smiles_native(rows, i, **kw)
+                   for i in range(n)]
+    assert got == [jax_assemble.assemble_smiles(rows, i, **kw)
+                   for i in range(n)]
+    assert got[4] is None and got[-1] is None
+    assert sum(s is not None for s in got) >= 6
+    fetched = _as_fetched(rows)
+    assert not fetched["atom_xy"].flags.c_contiguous
+    for tiny in (0, 1):
+        monkeypatch.setattr(native, "_SMILES_BYTES_A_ROW", tiny)
+        assert native.assemble_smiles_batch_native(
+            fetched, cap, subcell, rematch, vprune)[0] == got
+    monkeypatch.undo()
+    if cap == assemble.OVERSHOOT_CAP:
+        # the serial native path of assemble_batch is this call
+        del kw["overshoot_cap"]
+        assert assemble.assemble_batch(fetched, **kw) == got
+        assert jax_assemble.assemble_batch(rows, native=True, **kw) == got
+        assert jax_assemble.assemble_batch(rows, native=False, **kw) == got
+
+
+def test_batched_native_call_refuses_a_misshapen_array(rows):
+    bad = dict(rows, bond_type=rows["bond_type"][:, :-1])
+    with pytest.raises(ValueError, match="bond_type"):
+        native.assemble_smiles_batch_native(bad, 2.0, True, 3.0, 0.85)
+    empty = {k: v[:0] for k, v in rows.items()}
+    assert native.assemble_smiles_batch_native(
+        empty, 2.0, True, 3.0, 0.85) == ([], 0, 0)
 
 
 def test_reference_constants_carried():

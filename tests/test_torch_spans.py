@@ -1,7 +1,8 @@
 """The conversion loop's spans and counters (utils/profiling.py) on the
 CPU: nothing is recorded without a profiler; under one every span of a
 batch is recorded once, with its parent, thread and batch id, the
-fetch thread's too, and the counters hold the peaks handed to assembly;
+worker thread's fetch and assembly too, and the counters hold the peaks
+handed to assembly and whether the loop found each batch assembled;
 `trace` writes them beside the chrome trace on its clock; the recorder
 under threads; and the benchmark's readers of them
 (benchmark/program_spans.py, benchmark/metrics/): the clock join finds a
@@ -13,6 +14,7 @@ import json
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -31,8 +33,8 @@ sys.path.insert(0, REPO)
 
 from benchmark import harness, program_spans  # noqa: E402
 
-LOOP = ("stack", "dispatch", "pack", "enqueue", "wait", "assemble")
-FETCH = ("fetch", "d2h_wait", "unpack")
+LOOP = ("stack", "dispatch", "pack", "enqueue", "wait")
+FETCH = ("fetch", "d2h_wait", "unpack", "assemble")
 PARENT = {"pack": "dispatch", "enqueue": "dispatch", "d2h_wait": "fetch",
           "unpack": "fetch"}
 READERS = ("pack_ms", "enqueue_ms", "loop_wait_ms", "assemble_us_per_peak",
@@ -103,18 +105,22 @@ def test_profiled_loop_records_every_span_once_a_batch(run, images):
             assert p.start_ns <= c.start_ns <= c.end_ns <= p.end_ns
         assert by["stack", b].end_ns <= by["dispatch", b].start_ns
         assert by["dispatch", b].end_ns <= by["fetch", b].start_ns
-        assert by["wait", b].end_ns <= by["assemble", b].start_ns
+        # the worker assembles the batch it fetched; the loop's wait
+        # ends once that assembly has
+        assert by["fetch", b].end_ns <= by["assemble", b].start_ns
+        assert by["assemble", b].end_ns <= by["wait", b].end_ns
     for b, peaks in enumerate(handed):
         c = counters[b]
         assert c["atoms"] == int(peaks["atom_valid"].sum())
         assert c["bonds"] == int(peaks["bond_valid"].sum())
         assert c["images"] == BATCH
+        assert c["assembly_ready"] in (0, 1)
         assert c["smiles_none"] == sum(
             s is None for s in assemble_batch(peaks))
         if load_native() is not None:
             assert c["graph_ns"] > 0 and c["smiles_ns"] > 0
     assert sum(c["atoms"] for c in counters.values()) > 0
-    # the loop's thread's spans are ranges of the profile too, the fetch
+    # the loop's thread's spans are ranges of the profile too, the worker
     # thread's are not (the profiler records nothing of that thread)
     ranges = {}
     for e in prof.events():
@@ -122,6 +128,47 @@ def test_profiled_loop_records_every_span_once_a_batch(run, images):
             key = e.name[len(profiling.PREFIX):]
             ranges[key] = ranges.get(key, 0) + 1
     assert ranges == {name: 3 for name in LOOP}
+
+
+class _SlowPipeline:
+    """dispatch -> first pixel of each image, a pause on batch `slow`;
+    fetch on the worker thread."""
+
+    def __init__(self, slow):
+        self.slow, self.n = slow, 0
+
+    def dispatch(self, batch):
+        if self.n == self.slow:
+            time.sleep(0.3)
+        self.n += 1
+        return batch[:, 0, 0].copy()
+
+    def fetch(self, handle):
+        return handle
+
+
+def test_assembly_ready_counts_each_batch_once():
+    """1 where the worker had assembled the batch before the loop asked
+    for it (batch 0: the loop dispatched two more, one slowly), 0 where
+    it had not (the last batch, whose assembly takes 0.3 s)."""
+    def assemble(peaks):
+        if peaks[0] == 3:
+            time.sleep(0.3)
+        return [str(v) for v in peaks]
+
+    images = [np.full((4, 4), i // 2, np.uint8) for i in range(8)]
+    with profile(activities=[ProfilerActivity.CPU]):
+        preds = cli.img2smiles_loop(_SlowPipeline(slow=2), images, 2,
+                                    log_every=0, assemble=assemble)
+    assert preds == [str(i // 2) for i in range(8)]
+    counters = profiling.counters()
+    assert sorted(counters) == [0, 1, 2, 3]
+    assert all(c["assembly_ready"] in (0, 1) for c in counters.values())
+    assert counters[0]["assembly_ready"] == 1
+    assert counters[3]["assembly_ready"] == 0
+    waits = [s for s in profiling.spans() if s.name == "wait"]
+    assert sorted(s.batch for s in waits) == [0, 1, 2, 3]
+    assert all(s.thread == threading.get_native_id() for s in waits)
 
 
 def test_trace_writes_the_spans_on_the_chrome_trace_clock(run, images,
