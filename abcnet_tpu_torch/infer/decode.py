@@ -609,10 +609,13 @@ def make_infer_pipeline(model, device="cuda",
         with the blocks' rows in order. The waits release the interpreter
         lock, so a worker thread's fetch (and assembly) overlaps the main
         thread's dispatch. Spans: `fetch`, parent of `d2h_wait` (the
-        copies) and `unpack` (the dict)."""
+        copies) and `unpack` (the dict); once the copies are in, the
+        batch's device spans (the model's, e.g. `cbam`) are read into
+        their counters."""
         with profiling.span("fetch"):
             with profiling.span("d2h_wait"):
                 arrays = [host_arrays(part) for part in parts]
+            profiling.resolve_device_spans()
             with profiling.span("unpack"):
                 hi = np.concatenate([i for i, _ in arrays])
                 hf = np.concatenate([f for _, f in arrays])

@@ -350,8 +350,18 @@ def prepare_quant(model: torch.nn.Module, calib_images,
                   dense_heads: Sequence[str] = ("atom_target",
                                                 "bond_target")) -> Dict:
     """One-call PTQ of a production UNet: fold -> calibrate -> quantize,
-    on the model's device. calib_images: (N, H, W, 1) {0, 1} masks."""
+    on the model's device. calib_images: (N, H, W, 1) {0, 1} masks. Any
+    other model (UNetCBAM, UNetS2D, a fused head bank) raises ValueError
+    naming it: the fold reads the production topology."""
+    from ..models.unet import UNet
     from ..models.weights import to_flax
+
+    fused = getattr(model, "fused_head_bank", False)
+    if type(model) is not UNet or fused:
+        raise ValueError(f"the int8 backbone serves the production UNet "
+                         f"only, not {type(model).__name__}"
+                         f"{' with a fused head bank' if fused else ''}: "
+                         f"serve this model in bf16 or float32")
 
     params, stats = to_flax(model.state_dict())
     device = next(model.parameters()).device

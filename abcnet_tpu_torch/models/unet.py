@@ -203,14 +203,23 @@ class DoubleConv(nn.Module):
 
 
 class Down(nn.Module):
-    """MaxPool 2x2 then DoubleConv (unet.py:24-35)."""
+    """MaxPool 2x2 then DoubleConv (unet.py:24-35). A variant names its
+    block class `BLOCK` and the block's attribute `BODY` (the parameter
+    names models/weights.py maps)."""
+
+    BLOCK, BODY = DoubleConv, "double_conv"
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.double_conv = DoubleConv(in_features, features)
+        self.add_module(self.BODY, self.BLOCK(in_features, features))
+
+    @property
+    def body(self) -> nn.Module:
+        """The block after the pool (what remat covers)."""
+        return getattr(self, self.BODY)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return self.double_conv(F.max_pool2d(x, 2), dtype)
+        return self.body(F.max_pool2d(x, 2), dtype)
 
 
 def _crop_or_pad_to(x: torch.Tensor, target_h: int, target_w: int):
@@ -229,13 +238,22 @@ class Up(nn.Module):
 
     The weight of `up` is a torch ConvTranspose2d weight (in, out, kh,
     kw). Flax's ConvTranspose does not flip its kernel, so a Flax kernel
-    maps to it flipped on both spatial axes (models/weights.py)."""
+    maps to it flipped on both spatial axes (models/weights.py). `BLOCK`
+    and `BODY` as in Down."""
+
+    BLOCK, BODY = DoubleConv, "double_conv"
 
     def __init__(self, in_features: int, out_features: int, skip: int):
         super().__init__()
         self.up = nn.ConvTranspose2d(in_features, in_features // 2, 3,
                                      stride=2)
-        self.double_conv = DoubleConv(skip + in_features // 2, out_features)
+        self.add_module(self.BODY, self.BLOCK(skip + in_features // 2,
+                                              out_features))
+
+    @property
+    def body(self) -> nn.Module:
+        """The block after the concat (what remat covers)."""
+        return getattr(self, self.BODY)
 
     def upsample(self, x: torch.Tensor, skip: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
@@ -246,7 +264,7 @@ class Up(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-        return self.double_conv(self.upsample(x, skip, dtype), dtype)
+        return self.body(self.upsample(x, skip, dtype), dtype)
 
 
 def _dropout(x: torch.Tensor, training: bool,
@@ -288,15 +306,20 @@ def head_names(heads: Sequence[int]) -> Tuple[str, ...]:
 
 
 class _Trunk(nn.Module):
-    """What the production U-Net and its space-to-depth variant share:
-    the learned uncertainty weights, the encoder from the 64-channel
-    level (x3) down, the decoder, the two trailing DoubleConvs and the
-    heads. A subclass builds its stem in `build_stem` (registered right
-    after `s`, so parameters keep the order of the JAX module's tree) and
-    maps the NCHW input to x3 in `stem`."""
+    """What the production U-Net and its variants share: the learned
+    uncertainty weights, the encoder from the 64-channel level (x3) down,
+    the decoder, the two trailing DoubleConvs, the heads and the serving
+    contract of `forward`. A subclass builds its stem in `build_stem`
+    (registered right after `s`, so parameters keep the order of the JAX
+    module's tree) and maps the NCHW input to x3 in `stem`; a variant's
+    blocks are its `DOUBLE_CONV`, `DOWN`, `UP` and `OUT_CONV` classes,
+    and `HEAD_DTYPE` (None: the compute dtype) the type its heads come
+    back in."""
 
     BLOCKS = ("down3", "down4", "down5", "up1", "up2", "up3", "dconv1",
               "dconv2")
+    DOUBLE_CONV, DOWN, UP, OUT_CONV = DoubleConv, Down, Up, OutConv
+    HEAD_DTYPE: Optional[torch.dtype] = None
 
     def __init__(self, heads: Sequence[int], dtype: torch.dtype,
                  fused_head_bank: bool = False,
@@ -313,14 +336,14 @@ class _Trunk(nn.Module):
         unknown = self.remat_blocks - set(self.BLOCKS) - {"heads"}
         if unknown:
             raise ValueError(f"remat_blocks: no block {sorted(unknown)}")
-        self.down3 = Down(64, 128)
-        self.down4 = Down(128, 256)
-        self.down5 = Down(256, 512)
-        self.up1 = Up(512, 256, skip=256)
-        self.up2 = Up(256, 128, skip=128)
-        self.up3 = Up(128, 128, skip=64)
-        self.dconv1 = DoubleConv(128, 128)
-        self.dconv2 = DoubleConv(128, 128)
+        self.down3 = self.DOWN(64, 128)
+        self.down4 = self.DOWN(128, 256)
+        self.down5 = self.DOWN(256, 512)
+        self.up1 = self.UP(512, 256, skip=256)
+        self.up2 = self.UP(256, 128, skip=128)
+        self.up3 = self.UP(128, 128, skip=64)
+        self.dconv1 = self.DOUBLE_CONV(128, 128)
+        self.dconv2 = self.DOUBLE_CONV(128, 128)
         if fused_head_bank:
             n = len(self.heads)
             self.head_bank = nn.Conv2d(128, 128 * n, 3, padding=1)
@@ -329,7 +352,7 @@ class _Trunk(nn.Module):
                 self.add_module(f"out1_{name}", nn.Conv2d(128, width, 1))
         else:
             for name, width in zip(self.head_names, self.heads):
-                self.add_module(f"out_{name}", OutConv(128, width))
+                self.add_module(f"out_{name}", self.OUT_CONV(128, width))
 
     def head(self, name: str) -> OutConv:
         if self.fused_head_bank:
@@ -354,15 +377,14 @@ class _Trunk(nn.Module):
         # As in the JAX module, remat covers a Down's DoubleConv, not its
         # max pool, and an Up's DoubleConv, not its transposed conv.
         block = getattr(self, name)
-        return self._block(name, lambda t: block.double_conv(t, self.dtype),
+        return self._block(name, lambda t: block.body(t, self.dtype),
                            F.max_pool2d(x, 2))
 
     def _up(self, name: str, x: torch.Tensor,
             skip: torch.Tensor) -> torch.Tensor:
         block = getattr(self, name)
         x = block.upsample(x, skip, self.dtype)
-        return self._block(name, lambda t: block.double_conv(t, self.dtype),
-                           x)
+        return self._block(name, lambda t: block.body(t, self.dtype), x)
 
     def _dc(self, name: str, x: torch.Tensor) -> torch.Tensor:
         block = getattr(self, name)
@@ -399,6 +421,8 @@ class _Trunk(nn.Module):
                                         generator=generator)
                 else:
                     heads[name] = head(y, dt, generator)
+        if self.HEAD_DTYPE is not None:
+            heads = {n: v.to(self.HEAD_DTYPE) for n, v in heads.items()}
         out = {n: v.permute(0, 2, 3, 1) for n, v in heads.items()}
         if return_features:
             return out, y.permute(0, 2, 3, 1)

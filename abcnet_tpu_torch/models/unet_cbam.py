@@ -12,24 +12,29 @@ Differences from the production model:
 production model: convs and dense layers in `dtype` on f32 masters,
 BatchNorm in f32 (`conv_bn_act`, as the production model).
 
-It returns the dense head dict only, as the JAX module does: a training
-variant (`train.trainer.create_state(cfg, model=UNetCBAM(...))`), not
-served by the sparse pipeline. Parameter names follow the Flax tree
-(models/weights.py maps them): Dense_i -> dense{i}, CBAM_0 -> cbam,
-ChannelAttention_0 -> channel, SpatialAttention_0 -> spatial,
+Built on the production model's `_Trunk`, so it has the production
+serving contract: `forward(x, dense_heads, return_features, generator)`,
+the per-head `head(name)` that infer/decode.py's sparse heads fuse, and
+remat. `img2smiles` serves it as it serves the production model. Each of
+the 13 gate sites (channel gate, spatial gate, residual add, ReLU) is a
+device span `cbam` of utils/profiling.py and counts one `cbam_gates`;
+without an active profile both are no-ops. Parameter names follow the
+Flax tree (models/weights.py maps them): Dense_i -> dense{i}, CBAM_0 ->
+cbam, ChannelAttention_0 -> channel, SpatialAttention_0 -> spatial,
 DoubleConvCBAM_0 -> double_conv_cbam.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .unet import (BN_EPS, BN_MOMENTUM, PRODUCTION_HEADS, BatchNorm, _conv,
-                   _crop_or_pad_to, conv_bn_act, head_names)
+from ..utils import profiling
+from .unet import (BN_EPS, BN_MOMENTUM, PRODUCTION_HEADS, BatchNorm, Down,
+                   OutConv, Up, _conv, _Trunk, conv_bn_act)
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor,
@@ -97,95 +102,55 @@ class DoubleConvCBAM(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = conv_bn_act(self.conv0, self.bn0, x, "relu", dtype)
         y = conv_bn_act(self.conv1, self.bn1, y, "none", dtype)
-        y = self.cbam(y, dtype)
         res = _conv(self.conv2, x, dtype) if hasattr(self, "conv2") \
             else x.to(dtype)
-        return F.relu(y + res)
+        with profiling.device_span("cbam", y):
+            profiling.count("cbam_gates", 1)
+            return F.relu(self.cbam(y, dtype) + res)
 
 
-class DownCBAM(nn.Module):
-    def __init__(self, in_features: int, features: int):
-        super().__init__()
-        self.double_conv_cbam = DoubleConvCBAM(in_features, features)
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return self.double_conv_cbam(F.max_pool2d(x, 2), dtype)
+class DownCBAM(Down):
+    BLOCK, BODY = DoubleConvCBAM, "double_conv_cbam"
 
 
-class UpCBAM(nn.Module):
-    def __init__(self, in_features: int, out_features: int, skip: int):
-        super().__init__()
-        self.up = nn.ConvTranspose2d(in_features, in_features // 2, 3,
-                                     stride=2)
-        self.double_conv_cbam = DoubleConvCBAM(skip + in_features // 2,
-                                               out_features)
-
-    def forward(self, x: torch.Tensor, skip: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-        x = _conv(self.up, x, dtype, transpose=True)
-        x = _crop_or_pad_to(x, skip.shape[2], skip.shape[3])
-        x = torch.cat([skip, x.to(skip.dtype)], dim=1)
-        return self.double_conv_cbam(x, dtype)
+class UpCBAM(Up):
+    BLOCK, BODY = DoubleConvCBAM, "double_conv_cbam"
 
 
-class OutConvNoDropout(nn.Module):
-    """Conv3x3 -> BN -> LeakyReLU -> Conv1x1."""
+class OutConvNoDropout(OutConv):
+    """Conv3x3 -> BN -> LeakyReLU -> Conv1x1: OutConv with no dropout
+    (`generator` is accepted for the trainer's call and unused)."""
 
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__()
-        self.conv0 = nn.Conv2d(in_features, in_features, 3, padding=1)
-        self.bn0 = BatchNorm(in_features, BN_EPS, BN_MOMENTUM)
-        self.conv1 = nn.Conv2d(in_features, out_features, 1)
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = conv_bn_act(self.conv0, self.bn0, x, "leaky_relu", dtype)
         return _conv(self.conv1, x, dtype)
 
 
-class UNetCBAM(nn.Module):
+class UNetCBAM(_Trunk):
     """CBAM U-Net (the reference's unet2.py:129-175). forward(x) takes NHWC
     images (B, H, W, 1) and returns a dict head name -> (B, H/4, W/4,
-    width) f32 logits."""
+    width) f32 logits; `dense_heads` and `return_features` as the
+    production UNet's."""
+
+    BLOCKS = ("inc1", "inc2", "down1", "down2", "inc3") + _Trunk.BLOCKS
+    DOUBLE_CONV, DOWN, UP, OUT_CONV = (DoubleConvCBAM, DownCBAM, UpCBAM,
+                                       OutConvNoDropout)
+    HEAD_DTYPE = torch.float32
 
     def __init__(self, heads: Sequence[int] = PRODUCTION_HEADS,
                  dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.heads = tuple(heads)
-        self.dtype = dtype
-        self.head_names = head_names(self.heads)
-        self.s = nn.Parameter(torch.randn(10) / 100.0)
+        super().__init__(heads, dtype)
+
+    def build_stem(self) -> None:
         self.inc1 = DoubleConvCBAM(1, 32, kernel=5)
         self.inc2 = DoubleConvCBAM(32, 32, kernel=5)
         self.down1 = DownCBAM(32, 32)
         self.down2 = DownCBAM(32, 64)
         self.inc3 = DoubleConvCBAM(64, 64)
-        self.down3 = DownCBAM(64, 128)
-        self.down4 = DownCBAM(128, 256)
-        self.down5 = DownCBAM(256, 512)
-        self.up1 = UpCBAM(512, 256, skip=256)
-        self.up2 = UpCBAM(256, 128, skip=128)
-        self.up3 = UpCBAM(128, 128, skip=64)
-        self.dconv1 = DoubleConvCBAM(128, 128)
-        self.dconv2 = DoubleConvCBAM(128, 128)
-        for name, width in zip(self.head_names, self.heads):
-            self.add_module(f"out_{name}", OutConvNoDropout(128, width))
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
-        """`generator` is accepted for the trainer's call and unused: the
-        CBAM heads have no dropout."""
-        dt = self.dtype
-        x = x.permute(0, 3, 1, 2).to(dt)
-        x1 = self.inc2(self.inc1(x, dt), dt)
-        x2 = self.down1(x1, dt)
-        x3 = self.inc3(self.down2(x2, dt), dt)
-        x4 = self.down3(x3, dt)
-        x5 = self.down4(x4, dt)
-        x6 = self.down5(x5, dt)
-        y = self.up1(x6, x5, dt)
-        y = self.up2(y, x4, dt)
-        y = self.up3(y, x3, dt)
-        y = self.dconv2(self.dconv1(y, dt), dt)
-        return {name: getattr(self, f"out_{name}")(y, dt).float()
-                .permute(0, 2, 3, 1) for name in self.head_names}
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self._dc("inc2", self._dc("inc1", x))
+        x2 = self._down("down1", x1)
+        return self._dc("inc3", self._down("down2", x2))

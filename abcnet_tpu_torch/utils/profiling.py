@@ -32,14 +32,26 @@ thread unless named):
   wait      the loop waiting for the worker's fetch and assembly of the
             batch, once two later batches are dispatched
 
-and its counters: `images` (rows assembled), `atoms` and `bonds` (valid
+and inside `enqueue`, for the CBAM U-Net (models/unet_cbam.py), one
+`cbam` span around each of its 13 gate sites (channel gate, spatial
+gate, residual add, ReLU).
+
+Its counters: `images` (rows assembled), `atoms` and `bonds` (valid
 peaks handed to assembly), `smiles_none` (rows with no SMILES), on the
 serial native assembly path `graph_ns` and `smiles_ns` (the summed
-native time of graph assembly and of SMILES writing), and on the loop's
+native time of graph assembly and of SMILES writing), on the loop's
 thread `assembly_ready` (1 where the worker was done with the batch when
-the loop asked for it). While a profile is active, each span of the
-loop's thread is also an `abcnet.<name>` range of the chrome trace,
-beside the kernels it launched.
+the loop asked for it), and for the CBAM U-Net `cbam_gates` (gate sites
+run) and `cbam_device_us` (their device time).
+
+A device span (`device_span`) is a span that also times the device work
+it enqueues: two CUDA events on the current stream, recorded only while
+the thread records; `resolve_device_spans`, called where the batch's
+device work is known to be done (the pipeline's fetch, after its
+copies' event), adds their elapsed time to the counter
+`<name>_device_us`. While a profile is active, each span of the loop's
+thread is also an `abcnet.<name>` range of the chrome trace, beside the
+kernels it launched, and never a device event.
 """
 
 from __future__ import annotations
@@ -108,6 +120,7 @@ class Recorder:
         self._lock = threading.Lock()
         self._spans: deque = deque(maxlen=max_spans)
         self._counters: OrderedDict = OrderedDict()
+        self._events: OrderedDict = OrderedDict()
         self._max_batches = max_batches
         self._next = 0
         self.anchor = None
@@ -132,6 +145,21 @@ class Recorder:
                     self._counters.popitem(last=False)
             c[name] = c.get(name, 0) + n
 
+    def add_events(self, batch: int, name: str, start, end) -> None:
+        """A device span's pair of CUDA events, kept until the batch's
+        `take_events`."""
+        with self._lock:
+            ev = self._events.get(batch)
+            if ev is None:
+                ev = self._events[batch] = []
+                while len(self._events) > self._max_batches:
+                    self._events.popitem(last=False)
+            ev.append((name, start, end))
+
+    def take_events(self, batch: int) -> List:
+        with self._lock:
+            return self._events.pop(batch, [])
+
     def spans(self) -> List[Span]:
         with self._lock:
             return list(self._spans)
@@ -144,6 +172,7 @@ class Recorder:
         with self._lock:
             self._spans.clear()
             self._counters.clear()
+            self._events.clear()
             self._next = 0
             self.anchor = None
 
@@ -231,11 +260,61 @@ class _Span:
         return False
 
 
+class _DeviceSpan(_Span):
+    __slots__ = ("events",)
+
+    def __init__(self, name: str, bid: int, device: torch.device):
+        super().__init__(name, bid)
+        stream = torch.cuda.current_stream(device)
+        self.events = (stream, torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        super().__enter__()
+        stream, start, _ = self.events
+        start.record(stream)
+        return self
+
+    def __exit__(self, *exc):
+        stream, start, end = self.events
+        end.record(stream)
+        RECORDER.add_events(self.bid, self.name, start, end)
+        return super().__exit__(*exc)
+
+
 def span(name: str):
     """Context manager timing `name` in this thread's batch (a no-op
     where the thread records nothing)."""
     bid = _THREAD.batch
     return _OFF if bid is None else _Span(name, bid)
+
+
+def device_span(name: str, x: torch.Tensor):
+    """`span(name)` that, for a CUDA tensor `x`, also times the device
+    work enqueued inside it on x's device's current stream: a CUDA event
+    at each end, read by `resolve_device_spans`. A no-op where the
+    thread records nothing; on the CPU a plain span."""
+    bid = _THREAD.batch
+    if bid is None:
+        return _OFF
+    if x.device.type != "cuda":
+        return _Span(name, bid)
+    return _DeviceSpan(name, bid, x.device)
+
+
+def resolve_device_spans() -> None:
+    """Add the device time of this thread's batch's device spans to the
+    counters `<name>_device_us` (microseconds, summed by name). Call it
+    once the batch's device work has finished: an event's elapsed time
+    is read, never waited for."""
+    bid = _THREAD.batch
+    if bid is None:
+        return
+    ms: Dict[str, float] = {}
+    for name, start, end in RECORDER.take_events(bid):
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+    for name, v in ms.items():
+        RECORDER.count(bid, f"{name}_device_us", round(v * 1e3))
 
 
 def count(name: str, n: int) -> None:

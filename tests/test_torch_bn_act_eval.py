@@ -129,11 +129,10 @@ def _random_model(name, dtype, seed=0):
 def _eval_forwards(model, x):
     with torch.no_grad():
         out = dict(model(x))
-        if not isinstance(model, UNetCBAM):
-            heads, feats = model(x, dense_heads=DENSE_HEADS_SPARSE_MODE,
-                                 return_features=True)
-            out.update({f"sparse/{k}": v for k, v in heads.items()},
-                       features=feats)
+        heads, feats = model(x, dense_heads=DENSE_HEADS_SPARSE_MODE,
+                             return_features=True)
+        out.update({f"sparse/{k}": v for k, v in heads.items()},
+                   features=feats)
     return out
 
 

@@ -330,12 +330,21 @@ def test_readers_read_nothing_from_a_program_without_spans(name,
     assert harness.metric_reader(name).read(obs) is None
 
 
-def test_traced_cpu_run_reads_the_program_spans():
+def test_traced_cpu_run_reads_the_program_spans(monkeypatch):
+    # the run puts benchmark/ first on sys.path (whose `tests` package
+    # would then shadow this directory's) and drops torch to the harness's
+    # one thread: both are undone after the test, for the tests that the
+    # same worker runs next
+    monkeypatch.setattr(sys, "path", list(sys.path))
     sys.path.insert(0, os.path.join(REPO, "benchmark"))
     from benchmark.tests.cpu_run import cpu_context, cpu_run
 
-    line, checks = cpu_run(cpu_context("unet_bf16.convert_b64", trace=1,
-                                       dtype="float32"))
+    threads = torch.get_num_threads()
+    try:
+        line, checks = cpu_run(cpu_context("unet_bf16.convert_b64",
+                                           trace=1, dtype="float32"))
+    finally:
+        torch.set_num_threads(threads)
     assert line["correct"], (line, checks)
     got = line["metrics"]
     for name in ("pack_ms", "enqueue_ms", "loop_wait_ms",
