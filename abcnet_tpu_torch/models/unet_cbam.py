@@ -18,10 +18,13 @@ the per-head `head(name)` that infer/decode.py's sparse heads fuse, and
 remat. `img2smiles` serves it as it serves the production model. Each of
 the 13 gate sites (channel gate, spatial gate, residual add, ReLU) is a
 device span `cbam` of utils/profiling.py and counts one `cbam_gates`;
-without an active profile both are no-ops. Parameter names follow the
-Flax tree (models/weights.py maps them): Dense_i -> dense{i}, CBAM_0 ->
-cbam, ChannelAttention_0 -> channel, SpatialAttention_0 -> spatial,
-DoubleConvCBAM_0 -> double_conv_cbam.
+without an active profile both are no-ops. In eval mode a site is one op,
+ops/cbam_gate.py:cbam_gate_eval (on a GPU the kernels of
+csrc/cbam_gate.cu, which count `cbam_fused`; on the CPU the modules' op
+sequence); in train mode it runs the modules below under autograd.
+Parameter names follow the Flax tree (models/weights.py maps them):
+Dense_i -> dense{i}, CBAM_0 -> cbam, ChannelAttention_0 -> channel,
+SpatialAttention_0 -> spatial, DoubleConvCBAM_0 -> double_conv_cbam.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cbam_gate import cbam_gate_eval
 from ..utils import profiling
 from .unet import (BN_EPS, BN_MOMENTUM, PRODUCTION_HEADS, BatchNorm, Down,
                    OutConv, Up, _conv, _Trunk, conv_bn_act)
@@ -84,6 +88,13 @@ class CBAM(nn.Module):
         x = self.channel(x, dtype) * x
         return self.spatial(x, dtype) * x
 
+    def weights(self):
+        """(w0, b0, w1, b1, ws, bs): the shared MLP's and the spatial
+        conv's parameters, as ops/cbam_gate.py takes them."""
+        ch, sp = self.channel, self.spatial
+        return (ch.dense0.weight, ch.dense0.bias, ch.dense1.weight,
+                ch.dense1.bias, sp.conv0.weight, sp.conv0.bias)
+
 
 class DoubleConvCBAM(nn.Module):
     """(conv-BN-ReLU, conv-BN, CBAM) + residual shortcut, final ReLU."""
@@ -106,6 +117,8 @@ class DoubleConvCBAM(nn.Module):
             else x.to(dtype)
         with profiling.device_span("cbam", y):
             profiling.count("cbam_gates", 1)
+            if not self.training:
+                return cbam_gate_eval(y, res, *self.cbam.weights(), dtype)
             return F.relu(self.cbam(y, dtype) + res)
 
 

@@ -42,7 +42,8 @@ serial native assembly path `graph_ns` and `smiles_ns` (the summed
 native time of graph assembly and of SMILES writing), on the loop's
 thread `assembly_ready` (1 where the worker was done with the batch when
 the loop asked for it), and for the CBAM U-Net `cbam_gates` (gate sites
-run) and `cbam_device_us` (their device time).
+run), `cbam_fused` (those that ran the gate's kernels,
+ops/cbam_gate.py) and `cbam_device_us` (their device time).
 
 A device span (`device_span`) is a span that also times the device work
 it enqueues: two CUDA events on the current stream, recorded only while

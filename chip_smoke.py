@@ -389,6 +389,24 @@ CONV_S8_SITES = (
     ("dconv2.0", 128, 128, 128), ("dconv2.1", 128, 128, 128),
     ("y:atom_target", 128, 128, 128), ("y:bond_target", 128, 128, 128))
 INT8_OPS_PER_S = 1.979e15         # H100 SXM, dense int8 tensor cores
+# cbam_gate (ops/cbam_gate.py, csrc/cbam_gate.cu): the CBAM U-Net's 13
+# DoubleConvCBAM gate sites at 512² in forward order, (block, C, H = W)
+# (benchmark/configs/unet_cbam_bf16.json). A site's least bytes: y read
+# twice, res once, out written once (benchmark/counts_cbam.py:gate_bytes).
+# Tolerance against cbam_gate_eval_plain on the card (the stock chain):
+# summation order only (the spatial mean, the MLP and the 7x7 conv summed
+# in another order than ATen, cuBLAS and cuDNN; a bf16 rounding at a
+# boundary may flip): at most CBAM_DIFF_SHARE of the elements differ, each
+# within CBAM_REL of the scale |sa * ca * y| + |res|, which a flipped
+# rounding of a sigmoid's argument v reaches at |v| = 16 (it moves the
+# gate by up to 2^-7 |v| relative; tests/test_torch_cbam_gate_cuda.py).
+CBAM_SITES = (("inc1", 32, 512), ("inc2", 32, 512), ("down1", 32, 256),
+              ("down2", 64, 128), ("inc3", 64, 128), ("down3", 128, 64),
+              ("down4", 256, 32), ("down5", 512, 16), ("up1", 256, 32),
+              ("up2", 128, 64), ("up3", 128, 128), ("dconv1", 128, 128),
+              ("dconv2", 128, 128))
+CBAM_GATE_PASSES = 4
+CBAM_DIFF_SHARE, CBAM_REL = 1e-3, 2 ** -3
 
 
 def conv_s8_site(key):
@@ -1670,7 +1688,204 @@ def bn_act_eval_row(torch, launches, errs):
                    "with running statistics, activates and casts"}
 
 
-def phase_times(torch, fixture, model, run, launches, errs):
+def cbam_gate_inputs(torch, shape, dtype, gen, residual="identity",
+                     dev="cuda"):
+    """A gate site's operands: y (a BatchNorm output, about unit scale) and
+    res (a ReLU output, as the identity shortcut carries it, or a 1x1 conv
+    of one, `residual="conv"`), channels_last in dtype, and the f32 weights
+    of the shared MLP and the 7x7 conv, He-normal with small biases."""
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    c = shape[1]
+
+    def randn(*s):
+        return torch.randn(*s, device=dev, generator=gen)
+
+    y = randn(*shape).to(dtype).contiguous(memory_format=cl)
+    res = randn(*shape).relu().to(dtype).contiguous(memory_format=cl)
+    if residual == "conv":
+        res = F.conv2d(res, (randn(c, c, 1, 1) * c ** -0.5).to(dtype),
+                       (randn(c) * 0.1).to(dtype))
+    mid = max(c // 16, 1)
+    weights = (randn(mid, c) * (2 / c) ** 0.5, randn(mid) * 0.1,
+               randn(c, mid) * (2 / mid) ** 0.5, randn(c) * 0.1,
+               randn(1, 2, 7, 7) * (2 / 98) ** 0.5, randn(1) * 0.1)
+    return y, res, weights
+
+
+def cbam_gate_bound_ms(b, c, h):
+    return CBAM_GATE_PASSES * b * c * h * h * 2 / HBM_BYTES_PER_S * 1e3
+
+
+def cbam_gate_site_times(torch):
+    """Per site of a batch of 64: the kernels' ms, the stock chain's ms
+    (cbam_gate_eval_plain on the card) and the byte bound, each a median
+    of device_ms."""
+    from abcnet_tpu_torch.ops.cbam_gate import (cbam_gate_eval,
+                                                cbam_gate_eval_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    sites = {}
+    for name, c, h in CBAM_SITES:
+        y, res, w = cbam_gate_inputs(torch, (BATCH, c, h, h),
+                                     torch.bfloat16, gen)
+        with torch.no_grad():
+            sites[name] = {
+                "ms": device_ms(torch, lambda: cbam_gate_eval(
+                    y, res, *w, torch.bfloat16)),
+                "plain_ms": device_ms(torch, lambda: cbam_gate_eval_plain(
+                    y, res, *w, torch.bfloat16), 5),
+                "bound_ms": cbam_gate_bound_ms(BATCH, c, h)}
+        del y, res
+        torch.cuda.empty_cache()
+    return sites
+
+
+def cbam_gate_row(torch, sites, launches, err):
+    """The kernels-line row of cbam_gate: the inc1 shape (64 x 32 x 512²,
+    bf16) and the sum over the 13 sites of a batch of 64, each beside its
+    byte bound and the stock chain it replaced (cbam_gate_eval_plain, the
+    plain version, is that chain)."""
+    def total(key):
+        return sum(v[key] for v in sites.values())
+
+    inc1 = sites["inc1"]
+    return {
+        "name": "cbam_gate", "route": "cuda",
+        "source": "abcnet_tpu_torch/csrc/cbam_gate.cu",
+        "replaces": "abcnet_tpu/models/unet_cbam.py (XLA's fusions of "
+                    "ChannelAttention, SpatialAttention, the residual add "
+                    "and relu; no Pallas counterpart)",
+        "launches": launches, "max_abs_err": err,
+        "ms": inc1["ms"], "plain_ms": inc1["plain_ms"],
+        "replaced_chain_ms": inc1["plain_ms"],
+        "bound_ms": inc1["bound_ms"], "bound_by": "bytes",
+        "sites_ms": total("ms"), "sites_plain_ms": total("plain_ms"),
+        "sites_bound_ms": total("bound_ms"),
+        "sites_roofline_pct": 100 * total("bound_ms") / total("ms"),
+        "library_ms": None, "operations_type": "f32",
+        "shape": f"({BATCH},32,512,512) bf16 channels_last (inc1); sites: "
+                 f"the 13 of a batch of {BATCH}; three kernels a call",
+        "library": "none: no single PyTorch call computes a CBAM gate"}
+
+
+def cbam_kernels_in_spans(path):
+    """(the `abcnet.cbam` host ranges of a chrome trace, the names of the
+    kernels launched inside them): a kernel counts where the runtime call
+    that launched it (same correlation id) lies inside a range on the
+    range's thread."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == "abcnet.cbam" and e.get("ph") == "X"]
+    kernels = {e["args"]["correlation"]: e["name"] for e in events
+               if e.get("cat") == "kernel" and "correlation" in
+               e.get("args", {})}
+    inside = []
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                corr in kernels and \
+                any(t == e["tid"] and a <= e["ts"] <= z
+                    for t, a, z in ranges):
+            inside.append(kernels[corr])
+    return ranges, inside
+
+
+def phase_cbam_gate(torch, fixture):
+    """The CBAM gate's kernels against the stock chain at the 13 sites of
+    a batch of 64, their times (line `cbam_gate_sites`), and the CBAM
+    U-Net (bf16, seeded) served through make_infer_pipeline under a
+    profile: 13 `cbam_gates` and 13 `cbam_fused` a batch, 13 calls of
+    the kernels, and no stock reduction (`reduce_kernel`) inside the
+    `cbam` spans. Returns (the serving launches, the kernels-line row)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from abcnet_tpu_torch.__main__ import img2smiles_loop
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.models import UNetCBAM
+    from abcnet_tpu_torch.ops.cbam_gate import (cbam_gate_eval,
+                                                cbam_gate_eval_plain)
+    from abcnet_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    diffs, worst, ok = {}, 0.0, True
+    for name, c, h in CBAM_SITES:
+        y, res, w = cbam_gate_inputs(torch, (BATCH, c, h, h),
+                                     torch.bfloat16, gen)
+        with torch.no_grad():
+            got = cbam_gate_eval(y, res, *w, torch.bfloat16).float()
+            want = cbam_gate_eval_plain(y, res, *w, torch.bfloat16).float()
+        d = (got - want).abs()
+        share = (d > 0).double().mean().item()
+        # the scale |sa * ca * y| + |res|, from below: out - res is the
+        # gated term where relu passes it, -res where it clips
+        r = res.float().abs()
+        rel = (d / ((want - res.float()).abs() + r + 1e-30)).max().item()
+        diffs[name] = {"differing_share": share, "max_rel": rel}
+        worst = max(worst, d.max().item())
+        ok = ok and share <= CBAM_DIFF_SHARE and rel <= CBAM_REL
+        del y, res, got, want, d
+        torch.cuda.empty_cache()
+    sites = cbam_gate_site_times(torch)
+    row = cbam_gate_row(torch, sites, None, worst)
+    emit("cbam_gate_sites", ok=ok, batch=BATCH, row=row, sites={
+        k: {**v, **diffs[k]} for k, v in sites.items()},
+        gate=f"each site: at most {CBAM_DIFF_SHARE} of the elements differ "
+             f"from cbam_gate_eval_plain, each within {CBAM_REL} of "
+             "|out| + 2|res|")
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = UNetCBAM(dtype=torch.bfloat16)
+    run = make_infer_pipeline(model.cuda().eval(), "cuda")
+    images = list(fixture["images"]) * 2
+    img2smiles_loop(run, images[:BATCH], BATCH, log_every=0)       # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        img2smiles_loop(run, images, BATCH, log_every=0)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    counters = list(profiling.counters().values())
+    profiling.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        ranges, inside = cbam_kernels_in_spans(path)
+    n = len(images) // BATCH
+    reductions = sorted({k for k in inside if "reduce_kernel" in k})
+    ours = sum("cbam_gate.cu" in k or "gate_kernel" in k or
+               "pool_kernel" in k or "mlp_kernel" in k for k in inside)
+    served = (len(counters) == n and
+              all(c.get("cbam_gates") == c.get("cbam_fused") == 13
+                  for c in counters) and
+              launches["cbam_gate"] == 13 * n and len(ranges) == 13 * n and
+              not reductions and ours == 3 * 13 * n)
+    emit("cbam_serving", ok=served, batches=n, launches=launches,
+         counters=counters, cbam_ranges=len(ranges),
+         kernels_in_cbam_ranges=sorted(set(inside)),
+         gate_kernels_in_ranges=ours, reduce_kernels_in_ranges=reductions,
+         gate="13 cbam_gates = 13 cbam_fused a batch, 13 calls of the "
+              "kernels a batch (3 kernels each) inside the 13 cbam spans, "
+              "no reduce_kernel there")
+    del model, run
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("cbam_gate differs from the stock chain past "
+                             "its tolerance")
+    if not served:
+        raise AssertionError("the CBAM serving path did not run the gate's "
+                             "kernels at every site")
+    return launches, {**row, "launches": launches["cbam_gate"]}
+
+
+def phase_times(torch, fixture, model, run, launches, errs, cbam_row):
     import numpy as np
 
     from abcnet_tpu_torch.__main__ import img2smiles_loop
@@ -1754,6 +1969,7 @@ def phase_times(torch, fixture, model, run, launches, errs):
     kernels.append(bn_act_row(torch, launches, errs))
     bn_act_step_shapes(torch)
     kernels.append(bn_act_eval_row(torch, launches, errs))
+    kernels.append(cbam_row)
 
     dense = (torch.randn(BATCH, 128, 128, device="cuda",
                          generator=torch.Generator(device="cuda")
@@ -2354,11 +2570,13 @@ def phase_bn_act_step(torch, samples):
 
 def reset_launches():
     from abcnet_tpu_torch.ops import bn_act
+    from abcnet_tpu_torch.ops.cbam_gate import cbam_gate_eval
     from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.unpack import unpack_bits
-    for fn in (unpack_bits, unpack_noise, nms_topk, conv3x3_s8):
+    for fn in (unpack_bits, unpack_noise, nms_topk, conv3x3_s8,
+               cbam_gate_eval):
         fn.launches = 0
     bn_act.reset_launches()
 
@@ -2367,8 +2585,10 @@ def read_launches():
     """Launches by kernel; bn_act's are those of its four train-mode entry
     points (statistics, apply, backward sums, backward apply) together,
     bn_act_eval's those of the eval kernel, conv_s8's those of the int8
-    conv kernel."""
+    conv kernel, cbam_gate's the calls of the CBAM gate's kernels (three
+    kernels a call, one call a site)."""
     from abcnet_tpu_torch.ops import bn_act
+    from abcnet_tpu_torch.ops.cbam_gate import cbam_gate_eval
     from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
@@ -2377,7 +2597,8 @@ def read_launches():
             "unpack_noise": unpack_noise.launches,
             "nms_topk": nms_topk.launches, "bn_act": bn_act.launches(),
             "bn_act_eval": bn_act.eval_apply.launches,
-            "conv_s8": conv3x3_s8.launches}
+            "conv_s8": conv3x3_s8.launches,
+            "cbam_gate": cbam_gate_eval.launches}
 
 
 def serving_launches(batches, eval_batches=0, model="sparse"):
@@ -2387,7 +2608,7 @@ def serving_launches(batches, eval_batches=0, model="sparse"):
     return {"unpack_bits": batches + eval_batches, "unpack_noise": 0,
             "nms_topk": batches, "bn_act": 0,
             "bn_act_eval": EVAL_BN[model] * batches
-            + EVAL_BN["dense"] * eval_batches, "conv_s8": 0}
+            + EVAL_BN["dense"] * eval_batches, "conv_s8": 0, "cbam_gate": 0}
 
 
 def train_bn_launches(model, steps):
@@ -3058,7 +3279,8 @@ def phase_variants(torch, fixture, samples):
                       "train_launches": launches[f"{name}_train"]}
         ok = ok and fell and \
             launches[f"{name}_train"]["unpack_noise"] == VARIANT_STEPS and \
-            launches[f"{name}_train"]["bn_act_eval"] == 0
+            launches[f"{name}_train"]["bn_act_eval"] == 0 and \
+            launches[f"{name}_train"]["cbam_gate"] == 0
         if name == "s2d":
             reset_launches()
             preds = img2smiles_loop(make_infer_pipeline(model.eval(), "cuda"),
@@ -3130,7 +3352,8 @@ def phase_variants(torch, fixture, samples):
     emit("variants", ok=ok, batch=BATCH, dtype="bfloat16", size=512,
          steps=VARIANT_STEPS, rows=rows,
          gate=f"S2D and CBAM finite with the loss falling, one noise launch "
-              f"a step, no bn_act_eval; S2D serves with one unpack and one "
+              f"a step, no bn_act_eval and no cbam_gate; S2D serves with "
+              f"one unpack and one "
               f"NMS launch and {EVAL_BN['s2d_sparse']} bn_act_eval; the fused "
               f"bank's eval forward through the kernel bit-equal to "
               f"bn_act_eval_plain, {EVAL_BN['fused_bank']} launches; "
@@ -5013,6 +5236,10 @@ def main(argv):
         phase = "serving_bf16"
         model, run, launches, bf16_preds = phase_bf16(torch, fixture)
         by_path["img2smiles_bf16"] = dict(launches)
+        if want("cbam_gate"):
+            phase = "cbam_gate"
+            by_path["cbam_serving"], cbam_row = phase_cbam_gate(torch,
+                                                                fixture)
         if only is None:
             phase = "train_f32"
             phase_train_f32(torch, samples, labels)
@@ -5023,7 +5250,8 @@ def main(argv):
             launches["bn_act"] = train_launches["bn_act"]
             by_path["fit_bf16"] = dict(train_launches)
             phase = "times"
-            kernels = phase_times(torch, fixture, model, run, launches, errs)
+            kernels = phase_times(torch, fixture, model, run, launches, errs,
+                                  cbam_row)
             phase = "train_times"
             phase_train_times(torch, samples, state, cfg, kernels)
             del state

@@ -22,8 +22,9 @@ matched to the production snapshot's peak counts over eight):
   * benchmark/counts_cbam.py against a count from the model's own
     modules: FlopCounterMode's operations and the gated tensors' bytes;
   * a profiled conversion loop records 13 `cbam` spans and `cbam_gates`
-    a batch, no device event named `abcnet.*`, and a device span's
-    events resolve into its `<name>_device_us` counter;
+    a batch (and no `cbam_fused`: on the CPU no gate runs the kernels), no
+    device event named `abcnet.*`, and a device span's events resolve
+    into its `<name>_device_us` counter;
   * the reference, the recipe and the counts import nothing of the
     program, of JAX or of the JAX package;
   * the int8 backbone refuses the model with an error that names it.
@@ -272,6 +273,8 @@ def test_profiled_loop_records_the_gates(model, crops):
     counters = profiling.counters()
     assert len(counters) == 2
     assert all(c["cbam_gates"] == 13 for c in counters.values())
+    # the CPU's gates are the plain chain: the kernels' counter stays out
+    assert not any("cbam_fused" in c for c in counters.values())
     spans = [s for s in profiling.spans() if s.name == "cbam"]
     assert len(spans) == 26 and all(s.parent == "enqueue" for s in spans)
     names = [(e.name, e.device_type) for e in prof.events()]
