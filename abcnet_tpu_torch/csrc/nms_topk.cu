@@ -113,38 +113,7 @@ struct Params {
   int at_merged, at_alive, at_cells;                    // Layout, in bytes
   int vec;       // 1: 16-byte loads are allowed
   float thr;
-  long long* stamps;   // timing-only build: 16 words a CTA, else unused
 };
-
-// Timing-only build (-DABCNET_NMS_STAMPS, tools/nms_stamps.py): thread 0 of
-// every CTA keeps clock64() at eight places of the kernel in registers and
-// writes them out as it leaves, with %globaltimer at entry and exit.
-#ifdef ABCNET_NMS_STAMPS
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define STAMPS_BEGIN()                                \
-  long long stamp_[8] = {0, 0, 0, 0, 0, 0, 0, 0};     \
-  const long long entered_ = global_ns()
-#define STAMP(n) \
-  do { if (threadIdx.x == 0) stamp_[n] = clock64(); } while (0)
-#define STAMPS_END()                                                       \
-  do {                                                                     \
-    if (threadIdx.x == 0 && p.stamps) {                                    \
-      long long* out_ =                                                    \
-          p.stamps + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 16;   \
-      for (int n_ = 0; n_ < 8; ++n_) out_[n_] = stamp_[n_];                \
-      out_[8] = entered_;                                                  \
-      out_[9] = global_ns();                                               \
-    }                                                                      \
-  } while (0)
-#else
-#define STAMPS_BEGIN()
-#define STAMP(n)
-#define STAMPS_END()
-#endif
 
 __host__ __device__ inline int next_pow2(int x) {
   int p = 1;
@@ -472,8 +441,6 @@ nms_topk_kernel(const Params p) {
   __shared__ int gathered;    // in the first CTA: keys handed over so far
   __shared__ int base;        // where this band's keys go among them
 
-  STAMPS_BEGIN();
-  STAMP(0);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = p.cluster;
   const int rank = (int)cluster.block_rank();
@@ -513,7 +480,6 @@ nms_topk_kernel(const Params p) {
   if (p.vec) nms_chunks(band, reinterpret_cast<uint8_t*>(alive), tid, lane);
   else nms_cells(band, alive, tid, lane);
   __syncthreads();
-  STAMP(1);
 
   // 2. Survivors become keys, a 32-cell word a thread. The score is read
   // again: its line was loaded a moment ago.
@@ -532,7 +498,6 @@ nms_topk_kernel(const Params p) {
     }
   }
   __syncthreads();
-  STAMP(2);
 
   // 3. A band hands its keys, unsorted, to the cluster's first CTA; one
   // with more than K sorts them first and hands over the best K.
@@ -546,7 +511,6 @@ nms_topk_kernel(const Params p) {
   const bool far_fill = band_cells < 2 * K;
   const int entries = table_words(band_cells, K, C);
   const bool quick = !far_fill && entries <= 32;
-  STAMP(3);
   cluster_wait();
   if (C > 1) {
     // A band's keys go where an atomicAdd on the first CTA's counter says.
@@ -559,9 +523,7 @@ nms_topk_kernel(const Params p) {
     if (rank == 0 && quick) list_few_dead_cells(alive, dead_cells, K, entries,
                                                 band_cells, tid);
     cluster_wait();
-    STAMP(4);
     if (rank != 0) {
-      STAMPS_END();
       if (far_fill) {             // keep the bitmask readable for CTA 0
         cluster_arrive();
         cluster_wait();
@@ -574,7 +536,6 @@ nms_topk_kernel(const Params p) {
                                    tid);
   }
   __syncthreads();
-  STAMP(5);
 
   // 4. The slot of a key is the number of keys that order before it: a few
   // keys are counted through, one thread a key; many are sorted.
@@ -598,7 +559,6 @@ nms_topk_kernel(const Params p) {
       out_i[s] = (int)(uint32_t)flat[s];
     }
   }
-  STAMP(6);
 
   // 5. Exhausted slots: the smallest non-surviving indices, ascending.
   if (total < K) {
@@ -614,17 +574,11 @@ nms_topk_kernel(const Params p) {
       out_i[total + s] = dead_cells[s];
     }
   }
-  STAMP(7);
-  STAMPS_END();
   if (far_fill && C > 1) {
     cluster_arrive();
     cluster_wait();
   }
 }
-
-// An empty kernel: launched with the grid, cluster and shared memory of
-// the real one, it shows what a launch of that shape costs by itself.
-__global__ void __launch_bounds__(kThreads) null_kernel() {}
 
 template <typename K, typename... Args>
 cudaError_t launch_clustered(K kernel, int blocks_x, int maps, int cluster,
@@ -693,18 +647,7 @@ int launch(Params p, int maps, int B, int want, void* stream) {
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-#ifdef ABCNET_NMS_STAMPS
-long long* g_stamps = nullptr;
-#endif
-
 }  // namespace
-
-#ifdef ABCNET_NMS_STAMPS
-// Where the next launches write their stamps: 16 int64 a CTA, grid order.
-extern "C" void abcnet_nms_topk_stamps(void* buffer) {
-  g_stamps = (long long*)buffer;
-}
-#endif
 
 // Dynamic shared memory per CTA for (H, W) maps, the largest K `kmax` and a
 // wanted cluster size; -1 if no cluster size fits the map.
@@ -734,24 +677,8 @@ extern "C" int abcnet_nms_topk(const void* logit_a, int k_a, void* scores_a,
   p.job[0] = Job{logit_a, (float*)scores_a, (int*)idx_a, k_a};
   p.job[1] = Job{logit_b, (float*)scores_b, (int*)idx_b, k_b};
   p.H = H, p.W = W, p.thr = thr;
-#ifdef ABCNET_NMS_STAMPS
-  p.stamps = g_stamps;
-#endif
   if (maps < 1 || maps > 2) return (int)cudaErrorInvalidValue;
   return bf16 ? launch<__nv_bfloat16>(p, maps, B, cluster, stream)
               : launch<float>(p, maps, B, cluster, stream);
 }
 
-// The empty kernel in the launch shape abcnet_nms_topk would use.
-extern "C" int abcnet_nms_topk_null(int maps, int B, int H, int W, int kmax,
-                                    int cluster, void* stream) {
-  static bool allowed[kMaxDevices] = {};
-  int c, rows, kc;
-  size_t bytes;
-  if (!choose(H, W, kmax, cluster, &c, &rows, &kc, &bytes))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(null_kernel, bytes, allowed);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_clustered(null_kernel, c * B, maps, c, bytes, stream);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
-}

@@ -171,7 +171,7 @@ def _folds_conv_bias(bn: nn.Module, x: torch.Tensor) -> bool:
     output), so the conv keeps it there. `bn` is not read: it stays for
     the routings patched in its place, which read its mode (the eval-only
     fold of the tests, the routing before the train-mode fold of
-    chip_smoke.py's train_times)."""
+    chip_smoke.py's conv_bias_fold gate)."""
     return x.device.type == "cuda"
 
 

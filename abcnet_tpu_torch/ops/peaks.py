@@ -34,9 +34,10 @@ import torch.nn.functional as F
 from ..utils import build
 from ..utils.device import stream_ptr
 
-# CTAs per map (a thread block cluster). chip_smoke.py times 1, 2, 4 and 8
-# on an H100 (`kernel_times`, `by_cluster_ms`): 2 and 4 are the fastest and
-# within a percent of each other, 1 and 8 some 8% slower.
+# CTAs per map (a thread block cluster). On an H100 80GB HBM3 at 700 W the
+# pair of serving maps took 0.012192, 0.011264, 0.011264 and 0.012384 ms
+# with clusters of 1, 2, 4 and 8 (PERF.md, the NMS row of the kernel table):
+# 2 and 4 are the fastest and within a percent of each other.
 CLUSTER = 4
 
 
@@ -65,8 +66,6 @@ def _lib() -> ctypes.CDLL:
     lib.abcnet_nms_topk.argtypes = [p, i, p, p, p, i, p, p, i, i, i, i,
                                     ctypes.c_float, i, i, p]
     lib.abcnet_nms_topk.restype = i
-    lib.abcnet_nms_topk_null.argtypes = [i, i, i, i, i, i, p]
-    lib.abcnet_nms_topk_null.restype = i
     lib.abcnet_nms_topk_smem_bytes.argtypes = [i, i, i, i]
     lib.abcnet_nms_topk_smem_bytes.restype = ctypes.c_longlong
     lib.abcnet_nms_topk_cluster.argtypes = [i, i, i, i]
@@ -148,20 +147,6 @@ def nms_topk_pair(a_logit: torch.Tensor, k_a: int, b_logit: torch.Tensor,
         return nms_topk_pair_plain(a_logit, k_a, b_logit, k_b, threshold)
     return tuple(_launch([a_logit, b_logit], [k_a, k_b], threshold,
                          cluster))
-
-
-def null_launch(b: int, h: int, w: int, k: int, maps: int = 2,
-                cluster: int = CLUSTER, device="cuda") -> None:
-    """Launch an empty kernel on `device` with the grid, cluster and
-    shared memory that the NMS kernel takes for `maps` (b, h, w) maps:
-    what a launch of that shape costs by itself. For measurements only."""
-    dev = torch.device(device)
-    with torch.cuda.device(dev):
-        err = _lib().abcnet_nms_topk_null(
-            maps, b, h, w, k, cluster,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"null launch failed (CUDA error {err})")
 
 
 nms_topk.launches = 0

@@ -9,8 +9,8 @@ end-to-end decode sweep over the pool's train split (`mine_hard`:
 make_infer_pipeline at batch MINE_BATCH on the clean images, the
 assembler, `_same_mol`) marks the molecules the current weights get
 wrong; its indices are cached per start step, and a relaunch reads the
-newest cache by numeric step. Then batches of 128 (the plain step,
-recipe.FT_REMAT_BLOCKS empty) draw HARD_FRAC of their rows from
+newest cache by numeric step. Then batches of 128 (the plain step, no
+remat) draw HARD_FRAC of their rows from
 the mined set with replacement and the rest from the whole split, both
 from np.random.default_rng(4000 + start step); LR 2.5e-5, 1e-5 from 0.85
 of the budget; checkpoint and EVAL every 1000 steps and at the end; then

@@ -7,7 +7,7 @@
 Counterpart of the JAX package's scripts/finetune_robust.py (environment
 overrides FT_EVAL_N, FT_BATCH, FT_LR, FT_DEGRADE_P, FT_B_FRAC, FT_HARD,
 FT_B_POOL_N). Continues the production weights at batch 128 (the plain
-step, recipe.FT_REMAT_BLOCKS empty) and LR 2.5e-5, 1e-5 from 0.85 of
+step, no remat) and LR 2.5e-5, 1e-5 from 0.85 of
 the budget up to the deadline. Every batch draws BATCH - n_b rows of the
 pool's train split and n_b = max(1, int(BATCH·B_FRAC)) rows of an
 engine-B pool (data/pool.py:ensure_pool, seed 31, FT_B_POOL_N rows, or

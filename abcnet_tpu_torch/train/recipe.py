@@ -16,8 +16,8 @@ once and keeps the scripts' behaviour:
     (models/weights.py:save_snapshot_f16), written in-process, then a
     git commit of it (up to three attempts; a failure is logged, never
     raised);
-  * the fine-tunes' model: the production UNet (FT_REMAT_BLOCKS
-    rematerialized: none), continued from a checkpoint directory whole or
+  * the fine-tunes' model: the production UNet with the plain step (no
+    block rematerialized), continued from a checkpoint directory whole or
     from a snapshot's weights (`--ckpt`), or resumed whole from the
     trainer's own output directory.
 
@@ -57,14 +57,6 @@ EVAL_BATCH = 16
 METRICS_EVERY = 10          # the sampled metrics step (every 10th step)
 FT_TAIL_FRACTION = 0.85     # the fine-tunes' LR drop point in the budget
 FT_TAIL_LR = 1e-5
-# The fine-tunes train at batch 128 (scripts/finetune_hard.py:43,
-# finetune_robust.py:40) with the plain step, as the scripts do: the
-# train-mode BatchNorm keeps only the bf16 conv output for its backward
-# (ops/bn_act.py), so the step fits one H100 80GB without recomputing a
-# block (PERF.md §5 has its peak). The blocks named here would be
-# rematerialized (models/unet.py `remat_blocks`, an option of the JAX
-# module too).
-FT_REMAT_BLOCKS = ()
 COMMIT_ATTEMPTS = 3
 COMMIT_RETRY_S = 5.0
 
@@ -274,18 +266,18 @@ def has_checkpoint(ckpt_dir: str) -> bool:
 
 def finetune_state(cfg: trainer.TrainConfig, ckpt: str, out_ckpt: str,
                    log=print) -> Tuple[trainer.TrainState, bool]:
-    """The fine-tunes' state: the production UNet (FT_REMAT_BLOCKS
-    rematerialized),
-    resumed whole (moments, LR, step, generator) from `out_ckpt` when it
-    holds a checkpoint, else continued from `ckpt`: a checkpoint directory
-    whole, as the scripts restore their source checkpoint
-    (models/unet.py's remat_blocks renames no parameter, so a plain
-    UNet's step_*.pt loads), or a snapshot .npz, which holds no optimizer
-    state, with fresh Adam moments at its step. Either source must hold
-    the production UNet. Returns (state, resumed), resumed only from
+    """The fine-tunes' state: the production UNet with the plain step (at
+    the scripts' batch of 128 it fits one H100 80GB without recomputing a
+    block: the train-mode BatchNorm keeps only the bf16 conv output for
+    its backward, ops/bn_act.py), resumed whole (moments, LR, step,
+    generator) from `out_ckpt` when it holds a checkpoint, else continued
+    from `ckpt`: a checkpoint directory whole, as the scripts restore their
+    source checkpoint, or a snapshot .npz, which holds no optimizer state,
+    with fresh Adam moments at its step. Either source must hold the
+    production UNet. Returns (state, resumed), resumed only from
     `out_ckpt`."""
     dtype = getattr(torch, cfg.dtype)
-    model = UNet(dtype=dtype, remat_blocks=FT_REMAT_BLOCKS)
+    model = UNet(dtype=dtype)
     if has_checkpoint(out_ckpt):
         state = trainer.create_state(cfg, model=model)
         return trainer.restore_checkpoint(state, out_ckpt), True

@@ -1,200 +1,208 @@
 #!/usr/bin/env python3
-"""Smoke run of abcnet_tpu_torch on one GPU: serving (img2smiles) and
-training (fit).
+"""On-card gates of abcnet_tpu_torch on one GPU, and the kernel-alone
+times: the one microbenchmark of the port. Whole-program rates belong to
+the benchmark (BENCHMARK.json, benchmark/run.py), not to this script.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-Drives the port's serving path — bit pack, unpack kernel, production U-Net
+Drives the port's serving path (bit pack, unpack kernel, production U-Net
 on the step-43100 snapshot, NMS/top-K kernel, sparse heads, packed
-transport, host assembly, scoring — on the 64-molecule fixture
-abcnet_tpu_torch/assets/smoke_step43100.npz, and prints one JSON line
-per phase:
+transport, host assembly, scoring) on the 64-molecule fixture
+abcnet_tpu_torch/assets/smoke_step43100.npz, its training path on the
+same molecules (abcnet_tpu_torch/assets/train_step43100.npz: their label
+strings and the JAX package's f32 eval losses on the first 16), and every
+other entry point of the port, and prints one JSON line per phase, in
+this order:
 
   1. environment: the card, its power limit and maximum SM clock, the
      kernel and assembler builds (all compilers started at once), ptxas's
      registers and spills, and the counts of the noise kernel's
      instructions by opcode (cuobjdump -sass);
-  2. kernels against their plain PyTorch versions on the card, bit-equal
-     (unpack on random and fixture bits; the noise kernel on twelve
-     cases; NMS/top-K on random, plateau, threshold, edge, constant and
-     below-threshold maps, on maps that try the seams between the
-     kernel's bands of rows, K = 128 and 160, on an odd shape and on
-     K = H*W, f32 and bf16, every cluster size, and both heatmaps in one
-     launch against two plain calls; bn_act, the train-mode conv bias ->
-     BatchNorm -> activation -> cast, forward and backward against
-     bn_act_plain at the inc1, down5, head and fused-head-bank shapes of
-     a batch of 64, bf16 and f32, each activation, without and with a
-     conv bias (its gradient within a stated absolute bound, and on
-     gradients that do not cancel against a float64 sum), within stated
-     tolerances, and four of them on four streams at once bit-equal to
-     each alone;
-     bn_act_eval, serving's conv bias -> BatchNorm -> activation -> cast,
-     against bn_act_eval_plain at every BatchNorm shape of sparse serving
-     at batch 64 and the fused bank's, bf16 and f32, with the snapshot's
-     statistics and with random ones, and on contiguous NCHW, bit-equal
-     (else within one bf16 ulp, f32 two, counted); then the fixture served
-     through it against the same serving through bn_act_eval_plain);
-  3. f32 serving (TF32 off): SMILES against the JAX package's f32 SMILES,
+  2. device_guard: every kernel wrapper on the last visible GPU while GPU
+     0 is current, bit-equal to its plain version, bn_act within its
+     tolerances (on a one-GPU machine it says so: "gpus": 1);
+  3. kernels_vs_plain: the kernels against their plain PyTorch versions
+     on the card, bit-equal (unpack on random and fixture bits; the noise
+     kernel on twelve cases; NMS/top-K on random, plateau, threshold,
+     edge, constant and below-threshold maps, on maps that try the seams
+     between the kernel's bands of rows, K = 128 and 160, on an odd shape
+     and on K = H*W, f32 and bf16, every cluster size, both heatmaps in
+     one launch against two plain calls, and the fixture's real heatmaps
+     from one bf16 forward of the snapshot, alone and as a pair); bn_act,
+     the train-mode conv bias -> BatchNorm -> activation -> cast, forward
+     and backward against bn_act_plain at the inc1, down5, head and
+     fused-head-bank shapes of a batch of 64, bf16 and f32, each
+     activation, without and with a conv bias (its gradient within a
+     stated absolute bound, and on gradients that do not cancel against a
+     float64 sum), within stated tolerances, and four of them on four
+     streams at once bit-equal to each alone; bn_act_eval, serving's conv
+     bias -> BatchNorm -> activation -> cast, against bn_act_eval_plain at
+     every BatchNorm shape of sparse serving at batch 64 and the fused
+     bank's, bf16 and f32, with the snapshot's statistics and with random
+     ones, and on contiguous NCHW, bit-equal (else within one bf16 ulp,
+     f32 two, counted), then the fixture served through it against the
+     same serving through bn_act_eval_plain; conv_s8 at the int8
+     backbone's 28 site shapes of batch 64 and on the quantize's rounding
+     sweeps, bit-equal;
+  4. serving_f32 (TF32 off): SMILES against the JAX package's f32 SMILES,
      gate >= 62/64;
-  4. bf16 serving, the production setting, through the CLI's serving
-     loop at batch 64, with the kernels' launch counts set to 0 just
-     before and read just after (one unpack, one NMS and 28 bn_act_eval
-     launches): exact match against the truth next to the TPU's, gate
-     port >= TPU - 3/64;
-  5. times on the card: each kernel and its plain version at the serving
-     shapes (median of 25 CUDA-event timings, each launched behind a
-     sleep kernel so the host's launch overhead is not timed), the bound
-     from the bytes each must move or the integer instructions it must
-     run (bn_act with the conv bias, beside the chain it replaces, and
-     bn_act_eval at the inc1 shape; line bn_act_shapes: each bn_act
-     kernel at every BatchNorm shape of the train step), an empty kernel in
-     the NMS kernel's launch shape, the NMS
-     kernel at every cluster size, a per-stage breakdown of one batch,
-     the serving loop's img/s at batch 64 on fresh input, and a
-     torch.profiler trace of the loop (device busy share, device time
-     per operator);
-  6. training (fixture abcnet_tpu_torch/assets/train_step43100.npz: the
-     label strings of the same 64 molecules and the JAX package's f32
-     eval losses on the first 16):
-     - train_f32: `eval_step` in f32 (TF32 off) on the snapshot weights
-       against the JAX losses, per term, relative 1e-3;
-     - train_bf16: the production setting (bf16, batch 64, full width)
-       from a seeded random init, TRAIN_STEPS steps through `fit` on the
-       raw samples (geometric augment, collate, prefetch, noise kernel,
-       targets, forward, losses, backward, Adam, the sampled metrics
-       step, one evaluation), launch counts set to 0 before and read
-       after; then the weights go through save_snapshot/load_snapshot
-       and the serving pipeline decodes the fixture with them;
-     - train_times: CUDA-event times per stage of one step, img/s of
-       the fit loop, peak memory, a torch.profiler operator table; then
-       the step with the conv bias folded into bn_act against the
-       routing before the fold (the conv adds its bias, its gradient a
-       separate sum): step ms and the add_ and sum rows of each trace;
-     - bn_act_step: one train_step at batch 64 from the snapshot through
-       bn_act's kernels and through bn_act_plain (which adds the conv
-       bias in front: the routing before the fold, bit for bit), same
-       batch and generator seed: in f32 (TF32 off) losses per term 1e-3
-       and the gradient tree 1e-2 relative L2; in bf16 within the floor
-       the run measures (the plain step against itself on the reversed
-       batch); the conv bias handed to every BatchNorm on both;
-  7. device_guard (run right after the build): every kernel wrapper on
-     the last visible GPU while GPU 0 is current, bit-equal to its plain
-     version, bn_act within its tolerances (on a one-GPU machine it says
-     so: "gpus": 1);
-  8. ddp_train: two ranks of data-parallel training (NCCL on two GPUs, or
-     both ranks on the one card over gloo, which is no speed figure), full
-     width at 512²: the first f32 step at global batch 16 against one
-     process at batch 16 on the same images (losses, gradients, running
-     statistics), then bf16 at global batch 64 through `fit` for 10 steps
-     with ms/step and peak memory per rank;
-  9. mesh_serving: make_infer_pipeline over every visible GPU (four row
+  5. serving_bf16, the production setting, through the CLI's serving loop
+     at batch 64, with the kernels' launch counts set to 0 just before and
+     read just after (one unpack, one NMS and 28 bn_act_eval launches):
+     exact match against the truth next to the TPU's, gate port >= TPU -
+     3/64;
+  6. cbam_gate_sites: the CBAM gate's kernels against the stock chain at
+     the 13 site shapes of a batch of 64, each site's share of differing
+     elements and their size gated, and each site's times (the kernels,
+     the stock chain, the byte bound); cbam_serving: a seeded CBAM U-Net
+     served through make_infer_pipeline under a profile, 13 cbam_gates
+     and 13 cbam_fused a batch, three kernels a site inside the cbam
+     spans and no stock reduction there;
+  7. train_f32: `eval_step` in f32 (TF32 off) on the snapshot weights
+     against the JAX losses, per term, relative 1e-3;
+  8. train_bf16: the production setting (bf16, batch 64, full width) from
+     a seeded random init, TRAIN_STEPS steps through `fit` on the raw
+     samples (geometric augment, collate, prefetch, noise kernel,
+     targets, forward, losses, backward, Adam, the sampled metrics step,
+     one evaluation), launch counts set to 0 before and read after; then
+     the weights go through save_snapshot/load_snapshot and the serving
+     pipeline decodes the fixture with them;
+  9. bn_act_shapes and kernel_times, the kernel-alone times: each kernel
+     and its plain version at the shapes of a batch of 64 (median of 25
+     CUDA-event timings, each launched behind a sleep kernel so the
+     host's launch overhead is not timed; the NMS kernel on the fixture's
+     real heatmaps and on random maps, which take its sorting route),
+     beside the bound from the bytes each must move or the integer
+     instructions it must run (bn_act with the conv bias, beside the
+     chain it replaces, and bn_act_eval at the inc1 shape; line
+     bn_act_shapes: each bn_act kernel at every BatchNorm shape of the
+     train step; the CBAM gate's row from cbam_gate_sites);
+ 10. conv_bias_fold: the train step with the conv bias folded into bn_act
+     against the routing before the fold (the conv adds its bias, its
+     gradient a separate sum), a trace of each: at least one aten::add_
+     and one aten::sum call fewer a step a BatchNorm;
+ 11. bn_act_step: one train_step at batch 64 from the snapshot through
+     bn_act's kernels and through bn_act_plain (which adds the conv bias
+     in front: the routing before the fold, bit for bit), same batch and
+     generator seed: in f32 (TF32 off) losses per term 1e-3 and the
+     gradient tree 1e-2 relative L2; in bf16 within the floor the run
+     measures (the plain step against itself on the reversed batch); the
+     conv bias handed to every BatchNorm on both;
+ 12. mesh_serving: make_infer_pipeline over every visible GPU (four row
      blocks on a one-GPU machine), peak dicts bit-equal to the unsharded
-     pipeline on each row block, SMILES against the whole batch, img/s;
-     multiproc_serving: two ranks of a process group (NCCL on two GPUs,
+     pipeline on each row block, SMILES against the whole batch;
+ 13. multiproc_serving: two ranks of a process group (NCCL on two GPUs,
      or both on the one card over gloo), each serving its 32 rows of the
      fixture batch through make_infer_pipeline(mesh=the rank's mesh) and
      assembling them in its own pool; rank 1 moves one statistic of its
      weights, which the pipeline's replication from rank 0 undoes; peak
      dicts bit-equal to the unsharded pipeline on each rank's row block,
-     SMILES against the whole batch, launches per rank, img/s per rank;
- 10. variants (bf16, 512², batch 64, seeded init): UNetS2D and UNetCBAM
+     SMILES against the whole batch, launches per rank;
+ 14. conv_s8_sites and quant_serving: prepare_quant on the snapshot,
+     calibrated on 32 fixture images, the 64 molecules served through the
+     int8 backbone; exact match beside bf16, peak dicts and SMILES equal
+     to the plain int8 backbone's, the int8 backbone's time against the
+     bf16 trunk's, each conv_s8 site's time (line conv_s8_sites), int32
+     accumulators against a float64 conv on the card;
+ 15. variants (bf16, 512², batch 64, seeded init): UNetS2D and UNetCBAM
      take 5 train steps each, S2D also serves; fused_head_bank and
      remat_blocks beside the plain UNet, first-step losses against it;
      the fused bank's eval forward through bn_act_eval's kernel against
      bn_act_eval_plain, bit-equal;
- 11. quant_serving: prepare_quant on the snapshot, calibrated on 32
-     fixture images, the 64 molecules served through the int8 backbone;
-     exact match beside bf16, the int8 trunk's time against the bf16
-     trunk's, int32 accumulators against a float64 conv on the card;
- 12. generator (no GPU work): the port's molecule generator on the card's
+ 16. ddp_train: two ranks of data-parallel training (NCCL on two GPUs, or
+     both ranks on the one card over gloo), full width at 512²: the first
+     f32 step at global batch 16 against one process at batch 16 on the
+     same images (losses, gradients, running statistics), then bf16 at
+     global batch 64 through `fit` for 10 steps, ranks bit-equal;
+ 17. generator (no GPU work): the port's molecule generator on the card's
      host makes the JAX package's data: the two held-out pools of
      final_eval (seeds 777001 rdkit, 777002 indigo, 256 each) against the
      512 truths of logs/final_eval_step43100.csv, the first 32 of each
      against the fixtures' label strings, SMILES and drawings (images
      reported as bit-equal counts and differing-pixel shares, with the
      Pillow and FreeType versions), every (mode, engine) stream and the
-     corpus mode against assets/gen_digests.npz; samples per second;
+     corpus mode against assets/gen_digests.npz;
      data.pipeline.generate_examples over a spawn pool of 4 against the
      serial concatenation of its chunks and the JAX package's list
-     (assets/examples_digests.npz), its rate with the pool and on one
-     thread;
- 13. final_eval: the n=256 evaluation (eval/final_eval.py) in bf16 on the
+     (assets/examples_digests.npz);
+ 18. final_eval: the n=256 evaluation (eval/final_eval.py) in bf16 on the
      snapshot over those pools: heatmap metrics per lineage, exact /
      exact_canonical / dice / decode rate per lineage and overall with
      the sub-cell and the integer-cell assembler, row-by-row agreement
      with the TPU's smiles_pred; gates: overall exact >= the TPU's 0.8379
      - 0.02, decode rate >= 0.99, one unpack and one NMS launch per
-     serving batch; then eval.classify_results and eval.failure_taxonomy
-     (host only) on the run's answers, written as a results CSV (buckets
-     sum to n, `ok` = the isomeric hits of score_pairs, the taxonomy holds
-     every struct miss, no launch), and on logs/final_eval_step43100.csv,
-     each printout's sha256 equal to the JAX script's
-     (FAILURE_BUCKET_DIGESTS);
- 14. cli_loop, through the port's main() in a temporary directory: gen ->
+     serving batch; then final_eval_failure_buckets: eval.classify_results
+     and eval.failure_taxonomy (host only) on the run's answers, written
+     as a results CSV (buckets sum to n, `ok` = the isomeric hits of
+     score_pairs, the taxonomy holds every struct miss, no launch), and
+     on logs/final_eval_step43100.csv, each printout's sha256 equal to
+     the JAX script's (FAILURE_BUCKET_DIGESTS);
+ 19. cli_loop, through the port's main() in a temporary directory: gen ->
      train --synthetic -> img2smiles -> test-acc -> cal-acc on the
      results CSV and on a copy with InChI truths; img2smiles and test-acc
      --ckpt of the checkpoint directory train wrote, their peak dicts and
      counts against the module fit left in memory; then test-acc's counting
      in f32 (TF32 off) on fixture rows 0-15 against the JAX package's
      counts (assets/test_acc_step43100.npz);
- 15. bench: `python -m abcnet_tpu_torch bench` (sparse, then its train
-     steps at the default --train-batch, 128, the JAX bench's) and `bench
-     --dense --skip-train` through the CLI's main(), each record printed,
-     then the bench's train steps alone at 128 and at 64 (paths
-     `bench_sparse`, `bench_dense`, `bench_train`, `bench_train_64`);
-     gates: exit 0 and no error, the rates finite and > 0, implied
-     TFLOP/s <= the H100's 989, one unpack and one NMS launch per call of
-     the serving program, one noise launch and four bn_act launches a
-     BatchNorm per train step, the train steps' peak memory <= 64 GiB at
-     128 and <= 30 GiB at 64, the default snapshot's weights in the
-     records, and the
-     bench's program on the clean-carry batch of buffer 0 bit-equal to
-     make_infer_pipeline on its images;
- 16. eval_suite, the README's four evaluation entry points through their
-     main(argv), each path's launches read from its own run
-     (`decode_ceiling`, `degraded_bench`, `cross_engine`, `e2e_overfit`):
-     eval.decode_ceiling 150 1000 (>= 149/150 a mode, one NMS launch a
-     sample, buckets and failures equal to the port's CPU run on the first
-     30 samples a mode), eval.degraded_bench 128 (clean decode >= 0.95 and
-     exact >= the TPU's 0.75 - 8/128, gray scan at threshold 0.2 above its
-     0.6 control, one unpack and one NMS launch a batch, each variant's
-     first batch bit-equal to make_infer_pipeline at its threshold; the
-     table beside the TPU's), eval.cross_engine_eval 128 (pools aligned,
-     eval-on-a exact >= the TPU's 0.9766 - 8/128, decode >= 0.99),
-     eval.e2e_overfit 64 75 (300 steps at batch 16: loss finite and
-     falling, exit code 0 iff the printed exact > 0, one noise launch a
-     step);
- 17. recipe, the production training recipe's four entry points through
-     their main(argv) in a temporary directory, each path's launches read
-     from its own run (`pool_r5`, `train_r5`, `finetune_robust`,
+ 20. bench_record, bench_train and bench: `python -m abcnet_tpu_torch
+     bench` (sparse, then its train steps at the default --train-batch,
+     128, the JAX bench's) and `bench --dense --skip-train` through the
+     CLI's main(), each record printed, then the bench's train steps
+     alone at 128 and at 64 (paths `bench_sparse`, `bench_dense`,
+     `bench_train`, `bench_train_64`); gates: exit 0 and no error, the
+     rates finite and > 0, implied TFLOP/s <= the H100's 989, one unpack
+     and one NMS launch per call of the serving program, one noise launch
+     and four bn_act launches a BatchNorm per train step, the train steps'
+     peak memory <= 64 GiB at 128 and <= 30 GiB at 64, the default
+     snapshot's weights in the records, and the bench's program on the
+     clean-carry batch of buffer 0 bit-equal to make_infer_pipeline on its
+     images;
+ 21. eval_decode_ceiling, eval_degraded_bench, eval_cross_engine,
+     eval_e2e_overfit and eval_suite: the README's four evaluation entry
+     points through their main(argv), each path's launches read from its
+     own run: eval.decode_ceiling 150 1000 (>= 149/150 a mode, one NMS
+     launch a sample, buckets and failures equal to the port's CPU run on
+     the first 30 samples a mode), eval.degraded_bench 128 (clean decode
+     >= 0.95 and exact >= the TPU's 0.75 - 8/128, gray scan at threshold
+     0.2 above its 0.6 control, one unpack and one NMS launch a batch,
+     each variant's first batch bit-equal to make_infer_pipeline at its
+     threshold; the table beside the TPU's), eval.cross_engine_eval 128
+     (pools aligned, eval-on-a exact >= the TPU's 0.9766 - 8/128, decode
+     >= 0.99), eval.e2e_overfit 64 75 (300 steps at batch 16: loss finite
+     and falling, exit code 0 iff the printed exact > 0, one noise launch
+     a step);
+ 22. recipe_pool_r5, recipe_train_r5, recipe_checkpoint_start,
+     recipe_finetune_robust, recipe_finetune_hard and recipe: the
+     production training recipe's four entry points through their
+     main(argv) in a temporary directory, each path's launches read from
+     its own run (`pool_r5`, `train_r5`, `finetune_robust`,
      `finetune_hard_mine`, `finetune_hard`): train.build_pool_r5 with 512
      train rows (the 256 eval rows and the first 256 train rows against
      assets/pool_r5_digests.npz: labels, SMILES, lineage, engine, engine B
-     images bit-equal, engine A ink masks of 16 rows within 1% of pixels;
-     samples/s); train.train_r5 for 75 s with a 75-s budget from a seeded
-     init (the three learning rates in order, loss finite, EVAL keys, the
+     images bit-equal, engine A ink masks of 16 rows within 1% of pixels);
+     train.train_r5 for 75 s with a 75-s budget from a seeded init (the
+     three learning rates in order, loss finite, EVAL keys, the
      checkpoint, the float16 snapshot stored by its rule, its fixture
      SMILES reported beside the run's weights', the commit logged, one
      noise launch a train and a metrics step); recipe.finetune_state at
      batch 128 from that checkpoint directory (its step and every
      optimizer-state tensor bit-equal to the file's, not a resume, no
-     launch; freed again); the committed snapshot's
-     own EVAL and FINAL numbers on the eval split; train.finetune_robust
-     (64-row engine B pool; the float16 snapshot of the weights it trained
-     serves their SMILES) and train.finetune_hard (mined set against the
-     phase's own count of misses, the cache read again) at batch 128 with
-     the plain step for about 40 s each, peak memory and step ms, gated
-     against the snapshot's numbers less 0.05;
- 18. the card line of nvidia-smi, then the kernels line, then the result.
+     launch; freed again); the committed snapshot's own EVAL and FINAL
+     numbers on the eval split; train.finetune_robust (64-row engine B
+     pool; the float16 snapshot of the weights it trained serves their
+     SMILES) and train.finetune_hard (mined set against the phase's own
+     count of misses, the cache read again) at batch 128 with the plain
+     step for about 40 s each, gated against the snapshot's numbers less
+     0.05;
+ 23. script (the whole run's seconds), the card line of nvidia-smi, then
+     the kernels line (the kernel_times rows, conv_s8's from
+     conv_s8_sites, each with `launches_by_path`), then the result.
 
 Every new path is driven with the kernels' launch counts set to 0 just
 before it and read just after (`launches_by_path` of the kernels line).
 `--phases a,b` runs the environment phase, bf16 serving and the named
-phases only (for iterating on the card; `kernels` names the kernels
-against their plain versions); with no arguments every phase runs but
-`remat_probe`, which runs only when named: the fine-tunes' batch 128
-plain and under each candidate remat set, each in a process of its own,
-the reading behind train/recipe.py:FT_REMAT_BLOCKS.
+phases only (for iterating on the card; `kernels` names
+kernels_vs_plain); with no arguments every phase runs.
 
 Exits non-zero on any failed phase, and without a result when there is
 no CUDA device or no abcnet_tpu_torch package beside the script.
@@ -500,15 +508,8 @@ EVAL_NEAR_TIE = 8 / 128
 # decodes 3.
 E2E_ARGS = ("64", "75")
 # recipe: the fine-tunes' batch (scripts/finetune_hard.py:43,
-# finetune_robust.py:40), and the remat sets `--phases remat_probe` tries
-# there beside the plain step: the JAX module's candidates, the
-# 512² and 256² low-channel levels (abcnet_tpu/models/unet.py:144-151),
-# then the heads, then every block and the heads.
+# finetune_robust.py:40), trained with the plain step (no remat).
 FT_BATCH = 128
-REMAT_CANDIDATES = (("inc1", "inc2"), ("inc1", "inc2", "down1"),
-                    ("inc1", "inc2", "down1", "down2"), ("heads",),
-                    ("inc1", "inc2", "heads"), "all")
-REMAT_PROBE_STEPS = 5
 # recipe: the production recipe's four entry points on a pool of
 # RECIPE_TRAIN_N train rows (cut from 90000) after the 256-row eval split;
 # train_r5 for 75 s with a 75-s budget (all three learning rates), each
@@ -1368,6 +1369,19 @@ def phase_kernels(torch, fixture):
             nms_cases.append({"case": f"pair:{name}+{other}",
                               "dtype": str(dt)[6:], "k": [128, 160],
                               "all_indices_equal": all_idx})
+    # The fixture's real heatmaps (one bf16 forward of the snapshot): each
+    # map at its K, then both in one launch.
+    maps = fixture_heatmaps(torch, fixture)
+    for m, k in zip(maps, (128, 160)):
+        err, n_finite, all_idx = check_nms(torch, m, k, -1.0)
+        nms_err = max(nms_err, err)
+        nms_cases.append({"case": "fixture_heatmap", "dtype": "bfloat16",
+                          "k": k, "finite_slots": n_finite,
+                          "all_indices_equal": all_idx})
+    err, all_idx = check_nms_pair(torch, *maps)
+    nms_err = max(nms_err, err)
+    nms_cases.append({"case": "pair:fixture_heatmaps", "dtype": "bfloat16",
+                      "k": [128, 160], "all_indices_equal": all_idx})
     torch.cuda.synchronize()
     if not all(c["all_indices_equal"] and c.get("cluster_1_2_8_equal", True)
                for c in nms_cases):
@@ -1401,25 +1415,46 @@ def phase_kernels(torch, fixture):
                       f"of a batch of {BATCH} and on every rounding sweep")
     return {"unpack_bits": unpack_err, "unpack_noise": noise_err,
             "nms_topk": nms_err, "bn_act": bn_err, "bn_act_eval": eval_err,
-            "conv_s8": s8_err}
+            "conv_s8": s8_err}, maps
 
 
-def serve(torch, fixture, dtype, images=None):
+def fixture_heatmaps(torch, fixture):
+    """(atom, bond) heatmap logits, (64, 128, 128) bf16 each, of one bf16
+    forward of the snapshot on the fixture's drawings: the maps a serving
+    batch hands the NMS kernel."""
+    from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT
+    from abcnet_tpu_torch.data.pipeline import device_unpack_bits, \
+        pack_images
+    from abcnet_tpu_torch.infer.decode import DENSE_HEADS_SPARSE_MODE
+    from abcnet_tpu_torch.models.weights import load_snapshot
+
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", torch.bfloat16)
+    bits = torch.from_numpy(pack_images(fixture["images"])).cuda()
+    with torch.no_grad():
+        heatmaps = model(device_unpack_bits(bits, dtype=torch.bfloat16),
+                         dense_heads=DENSE_HEADS_SPARSE_MODE)
+    maps = tuple(heatmaps[k][..., 0].contiguous()
+                 for k in ("atom_target", "bond_target"))
+    del model, heatmaps
+    torch.cuda.empty_cache()
+    return maps
+
+
+def serve(torch, fixture, dtype):
     from abcnet_tpu_torch.__main__ import DEFAULT_SNAPSHOT, img2smiles_loop
     from abcnet_tpu_torch.infer.decode import make_infer_pipeline
     from abcnet_tpu_torch.models.weights import load_snapshot
 
-    model, step = load_snapshot(DEFAULT_SNAPSHOT, "cuda", dtype)
+    model, _ = load_snapshot(DEFAULT_SNAPSHOT, "cuda", dtype)
     run = make_infer_pipeline(model, "cuda")
-    imgs = fixture["images"] if images is None else images
-    preds = img2smiles_loop(run, list(imgs), BATCH, log_every=0)
-    return model, run, [p or "" for p in preds]
+    preds = img2smiles_loop(run, list(fixture["images"]), BATCH, log_every=0)
+    return model, [p or "" for p in preds]
 
 
 def phase_f32(torch, fixture):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, _, preds = serve(torch, fixture, torch.float32)
+    _, preds = serve(torch, fixture, torch.float32)
     ref = fixture["jax_f32"].tolist()
     agree = sum(p == r for p, r in zip(preds, ref))
     mismatched = [{"row": i, "port": p, "jax_f32": r}
@@ -1436,9 +1471,7 @@ def phase_bf16(torch, fixture):
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.time()
-    model, run, preds = serve(torch, fixture, torch.bfloat16)
-    wall = time.time() - t0
+    model, preds = serve(torch, fixture, torch.bfloat16)
     launches = read_launches()
     truth = fixture["truth"].tolist()
     tpu = fixture["tpu_bf16"].tolist()
@@ -1454,68 +1487,13 @@ def phase_bf16(torch, fixture):
          gate="port_exact >= tpu_exact - 3/64; one unpack and one NMS "
               f"launch per batch, {EVAL_BN['sparse']} bn_act_eval (one a "
               "BatchNorm), no train kernel", port=str(port_rep),
-         tpu=str(tpu_rep), wall_s_incl_load=wall,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         tpu=str(tpu_rep), peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          mismatched_vs_tpu=[{"row": i, "port": p, "tpu": t}
                             for i, (p, t) in enumerate(zip(preds, tpu))
                             if p != t])
     if not ok:
         raise AssertionError("bf16 serving below the gate")
-    return model, run, launches, preds
-
-
-def stage_breakdown(torch, model, images_u8):
-    """Device time per stage of one serving batch (CUDA events between
-    the stages of make_infer_pipeline's device function, launched as the
-    pipeline launches them), and host time of the pack and assembly."""
-    import numpy as np
-
-    from abcnet_tpu_torch.data.pipeline import device_unpack_bits, \
-        pack_images
-    from abcnet_tpu_torch.infer import decode
-    from abcnet_tpu_torch.infer.assemble import assemble_batch
-
-    dt = model.dtype
-    heads = decode.sparse_heads(model, dt)
-    cfg = decode.DecodeConfig()
-    t0 = time.perf_counter()
-    bits_np = pack_images(images_u8)
-    host_pack_ms = (time.perf_counter() - t0) * 1e3
-    names = ("h2d", "unpack", "trunk_and_heatmaps", "peaks_and_sparse_heads",
-             "pack_and_d2h")
-    res = {n: [] for n in names}
-    res["assembly_host"] = []
-    with torch.no_grad():
-        for _ in range(5):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-            torch.cuda.synchronize()
-            ev[0].record()
-            bits = torch.from_numpy(bits_np).pin_memory().cuda(
-                non_blocking=True)
-            ev[1].record()
-            images = device_unpack_bits(bits, dtype=dt)
-            ev[2].record()
-            heatmaps, feats = model(images,
-                                    dense_heads=decode.DENSE_HEADS_SPARSE_MODE,
-                                    return_features=True)
-            ev[3].record()
-            peaks = decode.extract_peaks_sparse(heatmaps, feats, heads, cfg,
-                                                dt)
-            ev[4].record()
-            ib, fb = decode.pack_peaks(peaks)
-            host = decode.unpack_peaks_host(ib.cpu().numpy(),
-                                            fb.cpu().numpy(),
-                                            decode.peaks_spec(peaks))
-            ev[5].record()
-            torch.cuda.synchronize()
-            for j, n in enumerate(names):
-                res[n].append(ev[j].elapsed_time(ev[j + 1]))
-            t0 = time.perf_counter()
-            assemble_batch(host)
-            res["assembly_host"].append((time.perf_counter() - t0) * 1e3)
-    out = {n: float(np.median(v)) for n, v in res.items()}
-    out["pack_host"] = host_pack_ms
-    return out, heatmaps
+    return model, launches, preds
 
 
 def bn_act_row(torch, launches, errs):
@@ -1885,43 +1863,24 @@ def phase_cbam_gate(torch, fixture):
     return launches, {**row, "launches": launches["cbam_gate"]}
 
 
-def phase_times(torch, fixture, model, run, launches, errs, cbam_row):
-    import numpy as np
-
-    from abcnet_tpu_torch.__main__ import img2smiles_loop
+def phase_times(torch, fixture, maps, launches, errs, cbam_row):
+    """Line kernel_times: each kernel alone at the shapes of a batch of 64
+    against its plain version and its bound (device_ms; the NMS kernel on
+    the fixture's real heatmaps `maps`), and line bn_act_shapes. Returns
+    the kernels-line rows."""
     from abcnet_tpu_torch.data.pipeline import draw_noise_rates, pack_images
     from abcnet_tpu_torch.ops.noise import int32_probe, unpack_noise, \
         unpack_noise_plain
-    from abcnet_tpu_torch.ops.peaks import CLUSTER, nms_topk, \
-        nms_topk_pair, nms_topk_pair_plain, null_launch
+    from abcnet_tpu_torch.ops.peaks import CLUSTER, nms_topk_pair, \
+        nms_topk_pair_plain
     from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
-
-    images = fixture["images"]
-    stages, heatmaps = stage_breakdown(torch, model, images)
-    emit("stages_ms", ok=True, batch=BATCH, **stages)
 
     # The serving shapes: (64, 512, 64) packed bits -> bf16 (64, 512, 512);
     # the two (64, 128, 128) bf16 heatmaps, K = 128 (atoms), 160 (bonds).
-    dt = model.dtype
-    bits = torch.from_numpy(pack_images(images)).cuda()
-    a_map = heatmaps["atom_target"][..., 0].contiguous()
-    b_map = heatmaps["bond_target"][..., 0].contiguous()
-    for m, k in ((a_map, 128), (b_map, 160)):      # real maps, real data
-        err, _, all_idx = check_nms(torch, m, k, -1.0)
-        errs["nms_topk"] = max(errs["nms_topk"], err)
-        if not all_idx:
-            raise AssertionError("nms_topk on the real heatmaps: an index "
-                                 "slot differs from the plain version")
-    err, all_idx = check_nms_pair(torch, a_map, b_map)
-    errs["nms_topk"] = max(errs["nms_topk"], err)
-    if not all_idx:
-        raise AssertionError("nms_topk_pair on the real heatmaps: an index "
-                             "slot differs from the plain version")
-
-    def pair(cluster=CLUSTER):
-        return lambda: nms_topk_pair(a_map, 128, b_map, 160, -1.0, cluster)
-
-    el = 2 if dt == torch.bfloat16 else 4
+    dt = torch.bfloat16
+    bits = torch.from_numpy(pack_images(fixture["images"])).cuda()
+    a_map, b_map = maps
+    el = a_map.element_size()
     unpack_bytes = bits.numel() + bits.numel() * 8 * el
     nms_bytes = (a_map.numel() + b_map.numel()) * el + BATCH * (128 + 160) * 8
     nms_ops = (a_map.numel() + b_map.numel()) * 9     # 3x3 compares
@@ -1948,7 +1907,7 @@ def phase_times(torch, fixture, model, run, launches, errs, cbam_row):
          f"{str(dt)[6:]}; launches counted over the train_bf16 phase"),
         ("nms_topk", "abcnet_tpu_torch/csrc/nms_topk.cu",
          "abcnet_tpu/ops/pallas_peaks.py:78",
-         pair(),
+         lambda: nms_topk_pair(a_map, 128, b_map, 160, -1.0),
          lambda: nms_topk_pair_plain(a_map, 128, b_map, 160, -1.0),
          nms_bytes, nms_ops, "f32",
          f"1 launch per batch for both maps: 2 x ({BATCH},128,128) "
@@ -1971,23 +1930,13 @@ def phase_times(torch, fixture, model, run, launches, errs, cbam_row):
     kernels.append(bn_act_eval_row(torch, launches, errs))
     kernels.append(cbam_row)
 
+    # Beside the NMS row: maps with far more than K survivors in every band
+    # (random logits, what an untrained model gives): the sorting route.
     dense = (torch.randn(BATCH, 128, 128, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(2)) * 3).to(dt)
-    # Beside the NMS row: the two single-map launches it replaced, an empty
-    # kernel in its launch shape, and the pair at every cluster size.
-    nms_extra = {
-        "two_launch_ms": device_ms(torch, lambda: (
-            nms_topk(a_map, 128, -1.0), nms_topk(b_map, 160, -1.0))),
-        "null_launch_ms": device_ms(torch, lambda: null_launch(
-            BATCH, 128, 128, 160, maps=2)),
-        "by_cluster_ms": {str(c): device_ms(torch, pair(c))
-                          for c in (1, 2, 4, 8)},
-        # maps with far more than K survivors in every band (random logits,
-        # what an untrained model gives): the sorting route
-        "dense_maps_ms": device_ms(torch, lambda: nms_topk_pair(
-            dense, 128, dense, 160, -1.0)),
-    }
+    nms_extra = {"dense_maps_ms": device_ms(torch, lambda: nms_topk_pair(
+        dense, 128, dense, 160, -1.0))}
     # Beside the noise row: what the card executes of a Philox round's
     # instruction mix, against the table rate the bound is made from.
     probe_out = torch.empty(SMS * 16 * 256, dtype=torch.int32, device="cuda")
@@ -2005,86 +1954,8 @@ def phase_times(torch, fixture, model, run, launches, errs, cbam_row):
          **(nms_extra if k["name"] == "nms_topk" else {}),
          **(noise_extra if k["name"] == "unpack_noise" else {})}
         for k in kernels])
-
-    # Serving loop at batch 64 on fresh input: eight distinct batches (the
-    # fixture shifted by a few pixels), a host fetch of every batch's
-    # peaks, host assembly overlapped as in the CLI.
-    fresh = [np.roll(images, s, axis=2) for s in range(1, 9)]
-    flat = [im for batch in fresh for im in batch]
-    img2smiles_loop(run, flat[:BATCH], BATCH, log_every=0)        # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img2smiles_loop(run, flat, BATCH, log_every=0)
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for batch in fresh:
-        run(batch)                      # dispatch + fetch, no assembly
-    pipe_s = time.perf_counter() - t0
-    emit("serving_throughput", ok=True, batch=BATCH, images=len(flat),
-         loop_img_per_s=len(flat) / loop_s,
-         pipeline_img_per_s=len(flat) / pipe_s,
-         note="loop = CLI serving loop incl. host assembly; pipeline = "
-              "dispatch + fetch per batch, no assembly")
-    trace_serving(torch, run, flat)
     return kernels
 
-
-def trace_summary(prof, n):
-    """(device busy microseconds = the union of the kernel spans, device
-    milliseconds per operator and per one of `n` batches or steps, largest
-    first, the same per kernel name) of a torch.profiler trace. The
-    port's ctypes-launched kernels belong to no PyTorch operator but for
-    an autograd Function's (`_BnAct`): the kernel table names them."""
-    from torch.autograd import DeviceType
-
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_kernel = {}
-    for e in device:
-        key = e.name[:80]
-        by_kernel[key] = by_kernel.get(key, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / n
-    kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy_us, end = 0.0, None
-    for s, e in spans:                       # length of the union
-        if end is None or s > end:
-            busy_us += e - s
-            end = e
-        elif e > end:
-            busy_us += e - end
-            end = e
-    ops = sorted(((a.key, a.self_device_time_total / 1e3 / n)
-                  for a in prof.key_averages()
-                  if a.device_type == DeviceType.CPU
-                  and a.self_device_time_total > 0),
-                 key=lambda kv: -kv[1])
-    return busy_us, ops, kernels
-
-
-def trace_serving(torch, run, images):
-    """torch.profiler trace of the serving loop (a run separate from the
-    timed one): the share of the wall time in which some kernel ran on
-    the card, and device time per operator, per batch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from abcnet_tpu_torch.__main__ import img2smiles_loop
-
-    n_batches = len(images) // BATCH
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        img2smiles_loop(run, images, BATCH, log_every=0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, ops, kernels = trace_summary(prof, n_batches)
-    emit("serving_trace", ok=True, batches=n_batches,
-         device_busy_share=busy_us / wall_us if busy_us else None,
-         device_ms_per_batch=busy_us / 1e3 / n_batches,
-         top_ops_device_ms_per_batch=dict(ops[:12]),
-         top_kernels_device_ms_per_batch=dict(kernels[:16]),
-         note="trace of a separate loop run; busy = union of kernel spans "
-              "over the loop's wall time")
 
 # ---------------------------------------------------------------------------
 # Training phases
@@ -2186,13 +2057,11 @@ def phase_train_bf16(torch, fixture, samples):
     reset_launches()
     trainer.train_step, trainer.train_metrics_step = \
         recording_step, counting_metrics
-    t0 = time.perf_counter()
     try:
         state = trainer.fit(cfg, samples, test, state=state, verbose=False)
     finally:
         trainer.train_step, trainer.train_metrics_step = step_fn, metrics_fn
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -2233,124 +2102,30 @@ def phase_train_bf16(torch, fixture, samples):
          all_finite=finite, bn_running_stats_moved=bn_moved,
          noisy_forward_passes=noisy[0], launches=launches,
          last_terms={k: float(v) for k, v in terms[-1].items()},
-         wall_s=wall, img_per_s_incl_warmup=TRAIN_STEPS * BATCH / wall,
          peak_mem_gib=peak_gib, snapshot_roundtrip_equal=same,
          served_decoded=sum(p is not None for p in preds))
     if not ok:
         raise AssertionError("bf16 training below its gates")
-    return state, cfg, launches
+    return state, launches
 
 
-def train_stage_breakdown(torch, state, batch, reps=5):
-    """Device time per stage of one training step at batch 64 (CUDA
-    events between the stages of trainer.train_step, launched as it
-    launches them), median of `reps`; and of the sampled metrics step."""
-    import numpy as np
-
-    from abcnet_tpu_torch.data import pipeline
-    from abcnet_tpu_torch.ops import losses as L
-    from abcnet_tpu_torch.ops.targets import build_targets
-    from abcnet_tpu_torch.train import trainer
-
-    model, opt = state.model, state.optimizer
-    names = ("input_kernel", "targets", "forward", "losses", "backward",
-             "adam")
-    res = {n: [] for n in names}
-    res["step"], res["metrics_step"] = [], []
-    for rep in range(reps + 1):
-        gen = torch.Generator(device="cuda").manual_seed(rep)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-        torch.cuda.synchronize()
-        opt.zero_grad(set_to_none=True)
-        ev[0].record()
-        images = pipeline.device_unpack_bits(
-            batch["image_bits"], train=True, dtype=model.dtype, amount=0.2,
-            generator=gen)
-        ev[1].record()
-        targets = build_targets(batch, with_full_type=False)
-        ev[2].record()
-        model.train()
-        preds = model(images, generator=gen)
-        ev[3].record()
-        total = L.total_loss(L.compute_losses(preds, targets, batch), model.s)
-        ev[4].record()
-        total.backward()
-        ev[5].record()
-        opt.step()
-        ev[6].record()
-        del images, targets, preds, total
-        trainer.train_metrics_step(state, batch, rep)
-        ev[7].record()
-        torch.cuda.synchronize()
-        if rep == 0:
-            continue                       # warm-up
-        for j, n in enumerate(names):
-            res[n].append(ev[j].elapsed_time(ev[j + 1]))
-        res["step"].append(ev[0].elapsed_time(ev[6]))
-        res["metrics_step"].append(ev[6].elapsed_time(ev[7]))
-    return {n: float(np.median(v)) for n, v in res.items()}
-
-
-def phase_train_times(torch, samples, state, cfg, kernels):
+def phase_conv_bias_fold(torch, samples, state):
+    """Line conv_bias_fold: the train step (batch 64, the train_bf16
+    phase's state) with the conv bias folded into bn_act against the
+    routing before the fold, counted in a trace of each."""
     import random
 
-    from torch.profiler import ProfilerActivity, profile
-
     from abcnet_tpu_torch.data import pipeline
-    from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.train import trainer
 
     rng = random.Random(1)
     batch = trainer.to_device(pipeline.collate(
         [pipeline.sample_to_example(s, rng, train=True) for s in samples]),
         "cuda")
-    stages = train_stage_breakdown(torch, state, batch)
-
-    # The fit loop with its host feed (augment, collate, prefetch thread,
-    # pinned copies), warm: 10 more steps of the same state.
-    more = 10
-    cfg.epochs = state.step + more
-    cfg.eval_every = 10 ** 9
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    unpack_noise.launches = 0
-    t0 = time.perf_counter()
-    trainer.fit(cfg, samples, None, state=state, verbose=False)
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_step = unpack_noise.launches / more
-
-    n_trace = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n_trace):
-            trainer.train_step(state, batch, i, with_metrics=False)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, ops, _ = trace_summary(prof, n_trace)
-    noise = next(k for k in kernels if k["name"] == "unpack_noise")
     fold = fold_against_unfolded(torch, state, batch)
-    emit("train_times", ok=fold["ok"], batch=BATCH, stages_ms=stages,
-         fit_loop_steps=more, fit_loop_img_per_s=more * BATCH / loop_s,
-         fit_loop_ms_per_step=loop_s / more * 1e3,
-         peak_mem_gib=peak_gib,
-         noise_kernel={"ms": noise["ms"], "plain_ms": noise["plain_ms"],
-                       "bound_ms": noise["bound_ms"],
-                       "bound_by": noise["bound_by"],
-                       "launches_per_step_incl_metrics": per_step,
-                       "library_ms": None},
-         trace_steps=n_trace,
-         device_busy_share=busy_us / wall_us if busy_us else None,
-         device_ms_per_step=busy_us / 1e3 / n_trace,
-         top_ops_device_ms_per_step=dict(ops[:16]),
-         conv_bias_fold=fold,
-         note="stages: CUDA events inside one step, median of 5; fit loop: "
-              "host feed included, metrics step every 5th step; trace: 3 "
-              "train_steps on one resident batch; conv_bias_fold: the step "
-              "with the conv bias folded into bn_act (the main path) "
-              "against the routing before the fold, in turns")
+    emit("conv_bias_fold", batch=BATCH, **fold,
+         gate="at least one aten::add_ and one aten::sum call fewer a step "
+              "a BatchNorm than the routing before the fold")
     if not fold["ok"]:
         raise AssertionError(f"the conv bias fold: {fold}")
 
@@ -2365,12 +2140,9 @@ def _unfolded_routing(bn, x):
 def fold_against_unfolded(torch, state, batch, n=3):
     """train_step with the conv bias folded into bn_act (the main path)
     and with the routing before the fold (`_unfolded_routing`), on one
-    resident batch: the step's CUDA-event ms, median of n, in turns
-    (fold, unfolded, unfolded, fold), and a trace of n steps of each:
-    ms and calls a step of the `aten::add_` and `aten::sum` rows. Gate:
-    the fold runs at least one add_ and one sum fewer a BatchNorm of the
-    model."""
-    import numpy as np
+    resident batch: a trace of n steps of each, the calls a step of its
+    `aten::add_` and `aten::sum` rows. Gate: the fold runs at least one
+    add_ and one sum fewer a BatchNorm of the model."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2380,28 +2152,11 @@ def fold_against_unfolded(torch, state, batch, n=3):
 
     folds = unet._folds_conv_bias
     routing = {"fold": folds, "unfolded": _unfolded_routing}
-
-    def step_ms():
-        out = []
-        for i in range(n + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            trainer.train_step(state, batch, i, with_metrics=False)
-            ev[1].record()
-            torch.cuda.synchronize()
-            if i:
-                out.append(ev[0].elapsed_time(ev[1]))
-        return float(np.median(out))
-
-    res = {"step_ms": {"fold": [], "unfolded": []}}
+    res = {}
     try:
-        for path in ("fold", "unfolded", "unfolded", "fold"):
-            unet._folds_conv_bias = routing[path]
-            res["step_ms"][path].append(step_ms())
         for path in ("fold", "unfolded"):
             unet._folds_conv_bias = routing[path]
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
                 for i in range(n):
                     trainer.train_step(state, batch, i, with_metrics=False)
                 torch.cuda.synchronize()
@@ -2410,8 +2165,6 @@ def fold_against_unfolded(torch, state, batch, n=3):
             for op in ("aten::add_", "aten::sum"):
                 a = rows.get(op)
                 res.setdefault(op, {})[path] = {
-                    "device_ms_per_step": a.self_device_time_total / 1e3 / n
-                    if a else 0.0,
                     "calls_per_step": a.count / n if a else 0.0}
     finally:
         unet._folds_conv_bias = folds
@@ -2632,8 +2385,6 @@ def phase_device_guard(torch):
                                               pack_weights)
     from abcnet_tpu_torch.ops.noise import (int32_probe, unpack_noise,
                                             unpack_noise_plain)
-    from abcnet_tpu_torch.ops.peaks import (nms_topk, nms_topk_pair,
-                                            null_launch)
     from abcnet_tpu_torch.ops.unpack import unpack_bits, unpack_bits_plain
 
     gpus = torch.cuda.device_count()
@@ -2663,7 +2414,6 @@ def phase_device_guard(torch):
                 raise AssertionError(f"nms_topk on {dev} differs ({name})")
             checked += [f"nms_topk/{name}/{str(dt)[6:]}",
                         f"nms_topk_pair/{name}/{str(dt)[6:]}"]
-    null_launch(BATCH, 128, 128, 160, maps=2, device=dev)
     probe = torch.empty(SMS * 256, dtype=torch.int32, device=dev)
     int32_probe(probe, 4)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -2696,7 +2446,7 @@ def phase_device_guard(torch):
             raise AssertionError(f"conv_s8 on {dev} differs")
         checked.append(f"conv_s8/{str(dt)[6:]}")
     torch.cuda.synchronize(dev)
-    checked += ["null_launch", "int32_probe"]
+    checked.append("int32_probe")
     if torch.cuda.current_device() != 0:
         raise AssertionError("a kernel wrapper changed the current device")
     emit("device_guard", ok=True, gpus=gpus, device=str(dev),
@@ -2975,12 +2725,6 @@ def phase_mesh_serving(torch, fixture, bf16_model):
     smiles = img2smiles_loop(run, list(images), BATCH, log_every=0)
     smiles_whole = img2smiles_loop(whole, list(images), BATCH, log_every=0)
     agree = sum(a == b for a, b in zip(smiles, smiles_whole))
-    fresh = [np.roll(images, s, axis=2) for s in range(1, 9)]
-    run(fresh[0])
-    t0 = time.perf_counter()
-    for batch in fresh:
-        run(batch)
-    img_s = len(fresh) * BATCH / (time.perf_counter() - t0)
     ok = equal and agree >= BATCH - MESH_SMILES_SLACK and \
         launches == serving_launches(n)
     emit("mesh_serving", ok=ok, gpus=gpus, devices=[str(d) for d in
@@ -2990,14 +2734,12 @@ def phase_mesh_serving(torch, fixture, bf16_model):
          float_max_abs_diff_vs_whole_batch=float_diff,
          trunk_max_abs_diff_vs_whole_batch=trunk_diff,
          smiles_agree_with_whole_batch=agree, launches_per_batch=launches,
-         pipeline_img_per_s=img_s,
          gate=f"peak dicts equal to the unsharded pipeline on each row block; "
               f"SMILES of >= {BATCH - MESH_SMILES_SLACK}/{BATCH} equal to the "
               "whole-batch run; one unpack and one NMS launch per device per "
               f"batch, {EVAL_BN['sparse']} bn_act_eval",
-         note="img/s: dispatch + fetch per batch over 8 fresh batches, no "
-              "assembly" + ("" if gpus > 1 else
-                            f"; one GPU: {MESH_BLOCKS} row blocks on it"))
+         note=f"{gpus} GPUs" if gpus > 1 else
+         f"one GPU: {MESH_BLOCKS} row blocks on it")
     if not ok:
         raise AssertionError("mesh serving differs from the unsharded run")
     return launches
@@ -3009,7 +2751,7 @@ def multiproc_worker(out_path, backend):
     in its environment): the snapshot in bf16 (rank 1 moves MOVED_STAT
     first), make_infer_pipeline on the rank's mesh, the rank's rows of the
     fixture batch (`local_rows`) through the CLI's serving loop with the
-    rank's own assembly pool, then dispatch + fetch img/s."""
+    rank's own assembly pool."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3057,20 +2799,12 @@ def multiproc_worker(out_path, backend):
     finally:
         pool.close()
         pool.join()
-    fresh = [np.roll(images, s, axis=2) for s in range(1, 9)]
-    run(fresh[0])
-    dist.barrier()
-    t0 = time.perf_counter()
-    for batch in fresh:
-        run(batch)
-    img_s = len(fresh) * len(images) / (time.perf_counter() - t0)
     np.savez(out_path, **{f"peaks/{k}": v for k, v in served[0].items()},
              smiles=np.array([p or "" for p in smiles]),
              **{f"launches/{k}": np.int64(v) for k, v in launches.items()},
              batches=np.int64(len(served)), checksum=np.float64(checksum),
              moved=model.state_dict()[MOVED_STAT].float().cpu().numpy(),
-             rows=np.int64(len(images)), img_s=np.float64(img_s),
-             device=str(mesh.device))
+             rows=np.int64(len(images)), device=str(mesh.device))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -3145,7 +2879,6 @@ def phase_multiproc_serving(torch, fixture, bf16_model, bf16_preds):
                          "rows": int(got["rows"]), "batches": n_batches,
                          "peaks_equal_blockwise": same,
                          "launches": launches,
-                         "dispatch_fetch_img_per_s": float(got["img_s"]),
                          "param_checksum": float(got["checksum"])})
     smiles = [s for got in ranks for s in got["smiles"].tolist()]
     agree = sum(a == b for a, b in zip(smiles, bf16_preds))
@@ -3166,11 +2899,8 @@ def phase_multiproc_serving(torch, fixture, bf16_model, bf16_preds):
               "whole-batch run; one unpack and one NMS launch per rank per "
               f"batch, {EVAL_BN['sparse']} bn_act_eval; both ranks hold rank "
               "0's weights",
-         note="img/s: dispatch + fetch of 8 fresh batches of a rank's rows, "
-              "no assembly, both ranks at once" + (
-                  "; both ranks share one card over gloo: no speed figure "
-                  "of multi-GPU serving" if backend == "gloo" else
-                  "; NCCL, one GPU per rank"))
+         note="both ranks share one card over gloo" if backend == "gloo"
+         else "NCCL, one GPU per rank")
     if not ok:
         raise AssertionError("multi-process serving differs from the "
                              "unsharded run")
@@ -4261,90 +3991,6 @@ def _bench_cli(argv):
     return code or 0, json.loads(text.strip().splitlines()[-1]), seconds
 
 
-def remat_probe_worker(out_path, batch, blocks):
-    """REMAT_PROBE_STEPS train steps at `batch` of the production UNet
-    (bf16, seeded init) with `blocks` (comma-separated; "all" for every
-    block and the heads) rematerialized, in a process of its own, on two
-    staged synthetic batches, then one train_metrics_step: the median
-    step ms of the steps after the first two (CUDA events), the peak
-    memory, or the out-of-memory and the peak before it."""
-    import torch
-
-    sys.path.insert(0, HERE)
-    from abcnet_tpu_torch.data import pipeline
-    from abcnet_tpu_torch.models.unet import UNet
-    from abcnet_tpu_torch.train import trainer
-
-    names = (UNet.BLOCKS + ("heads",) if blocks == "all"
-             else tuple(b for b in blocks.split(",") if b))
-    batch = int(batch)
-    res = {"batch": batch, "remat_blocks": list(names)}
-    try:
-        torch.manual_seed(0)
-        model = UNet(dtype=torch.bfloat16, remat_blocks=names)
-        state = trainer.create_state(
-            trainer.TrainConfig(batch_size=batch), model=model)
-        staged = [trainer.to_device(pipeline.synthetic_batch(batch, 100 + s),
-                                    "cuda") for s in range(2)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for i in range(REMAT_PROBE_STEPS):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            _, total, _, _ = trainer.train_step(state, staged[i % 2], i,
-                                                with_metrics=False)
-            ev[1].record()
-            torch.cuda.synchronize()
-            times.append(ev[0].elapsed_time(ev[1]))
-        trainer.train_metrics_step(state, staged[0], 0)
-        torch.cuda.synchronize()
-        res.update(fits=True, step_ms=times,
-                   step_ms_median=sorted(times[2:])[len(times[2:]) // 2],
-                   loss_finite=bool(torch.isfinite(total)),
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    except torch.cuda.OutOfMemoryError as e:
-        res.update(fits=False,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   error=str(e).splitlines()[0][:400])
-    with open(out_path, "w") as f:
-        json.dump(res, f)
-
-
-def phase_remat_probe(torch):
-    """The batch-128 fine-tunes' remat sets on the card: the plain step at
-    BATCH and at FT_BATCH, then each candidate of REMAT_CANDIDATES at
-    FT_BATCH, each in a process of its own, so that an out-of-memory
-    spoils nothing after it. Runs only when named (`--phases
-    remat_probe`); its reading chose train/recipe.py:FT_REMAT_BLOCKS (the
-    heads when the plain step did not fit, none since it does)."""
-    import tempfile
-
-    torch.cuda.empty_cache()
-    rows = []
-    runs = [(BATCH, ""), (FT_BATCH, "")] + [
-        (FT_BATCH, ",".join(c) if isinstance(c, tuple) else c)
-        for c in REMAT_CANDIDATES]
-    with tempfile.TemporaryDirectory() as tmp:
-        for i, (batch, blocks) in enumerate(runs):
-            out = os.path.join(tmp, f"probe{i}.json")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--remat-probe",
-                 out, str(batch), blocks], capture_output=True, text=True,
-                timeout=600)
-            if proc.returncode != 0 or not os.path.exists(out):
-                raise RuntimeError(f"the remat probe {batch} {blocks!r} "
-                                   f"failed: {proc.stderr[-3000:]}")
-            with open(out) as f:
-                row = json.load(f)
-            row["seconds"] = time.perf_counter() - t0
-            rows.append(row)
-            emit("remat_probe_row", **row)
-    emit("remat_probe", rows=rows,
-         card_gib=torch.cuda.get_device_properties(0).total_memory / 2 ** 30)
-
-
 def phase_bench(torch):
     """The `bench` sub-command: `bench` (sparse, then its train steps at
     the default --train-batch) and `bench --dense --skip-train` through
@@ -4956,8 +4602,7 @@ def _recipe_checkpoint_start(torch, tmp):
         "optimizer_state_bit_equal": bool(want) and sorted(got) ==
         sorted(want) and not unequal,
         "not_resumed": not resumed,
-        "remat": state.model.remat_blocks == frozenset(
-            recipe.FT_REMAT_BLOCKS),
+        "remat": state.model.remat_blocks == frozenset(),
         "no_launch": not any(n.values()),
     }
     emit("recipe_checkpoint_start", checkpoint=os.path.basename(path),
@@ -5005,7 +4650,6 @@ def _recipe_robust(torch, tmp, pool, fixture, ref, by_path):
     import numpy as np
 
     from abcnet_tpu_torch.train import finetune_robust as fr
-    from abcnet_tpu_torch.train import recipe
 
     out = os.path.join(tmp, "weights_torch_robust")
     argv = [repr(time.time() + RECIPE_FT_S), pool,
@@ -5022,7 +4666,7 @@ def _recipe_robust(torch, tmp, pool, fixture, ref, by_path):
         snapshot["smiles_equal"] >= snapshot["of"] - MESH_SMILES_SLACK
     emit("recipe_finetune_robust", argv=argv, start_step=res.start_step,
          steps=res.steps, metrics_steps=res.metrics_steps,
-         remat_blocks=list(recipe.FT_REMAT_BLOCKS), batch=res.batch,
+         batch=res.batch,
          lr_changes=res.lr_changes, last_loss=float(res.last_loss),
          eval_atom_target_precision=ap, snapshot_atom_target_precision=ref_ap,
          eval=res.evals[-1][1], peak_gib=peak, f16_snapshot=snapshot,
@@ -5129,10 +4773,8 @@ def phase_recipe(torch, fixture):
     `finetune_hard`): build_pool_r5 against the digest fixture, train_r5
     from a seeded init, then the committed snapshot's own EVAL and FINAL
     numbers on the eval split, finetune_robust and finetune_hard from it
-    at batch 128 with the plain step (recipe.FT_REMAT_BLOCKS empty)."""
+    at batch 128 with the plain step (no remat)."""
     import tempfile
-
-    from abcnet_tpu_torch.train import recipe
 
     by_path, gates, times = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -5155,7 +4797,6 @@ def phase_recipe(torch, fixture):
          seconds=times, snapshot_reference={
              "step": ref["step"], "eval": ref["eval"],
              "final": str(ref["final"])},
-         remat_blocks=list(recipe.FT_REMAT_BLOCKS),
          gate=f"pool rows, labels, SMILES, lineage and engine equal to the "
               f"digest fixture, engine B images bit-equal, engine A masks "
               f"within {PIXEL_SHARE_MAX} of pixels, no launch; train_r5: "
@@ -5187,9 +4828,6 @@ def main(argv):
         return 0
     if argv[:1] == ["--multiproc-worker"]:
         multiproc_worker(*argv[1:3])
-        return 0
-    if argv[:1] == ["--remat-probe"]:
-        remat_probe_worker(*argv[1:4])
         return 0
     only = None
     if argv[:1] == ["--phases"]:
@@ -5229,12 +4867,12 @@ def main(argv):
             phase_device_guard(torch)
         if want("kernels"):
             phase = "kernels_vs_plain"
-            errs = phase_kernels(torch, fixture)
+            errs, maps = phase_kernels(torch, fixture)
         if only is None:
             phase = "serving_f32"
             phase_f32(torch, fixture)
         phase = "serving_bf16"
-        model, run, launches, bf16_preds = phase_bf16(torch, fixture)
+        model, launches, bf16_preds = phase_bf16(torch, fixture)
         by_path["img2smiles_bf16"] = dict(launches)
         if want("cbam_gate"):
             phase = "cbam_gate"
@@ -5244,16 +4882,17 @@ def main(argv):
             phase = "train_f32"
             phase_train_f32(torch, samples, labels)
             phase = "train_bf16"
-            state, cfg, train_launches = phase_train_bf16(torch, fixture,
-                                                          samples)
+            state, train_launches = phase_train_bf16(torch, fixture,
+                                                     samples)
             launches["unpack_noise"] = train_launches["unpack_noise"]
             launches["bn_act"] = train_launches["bn_act"]
             by_path["fit_bf16"] = dict(train_launches)
-            phase = "times"
-            kernels = phase_times(torch, fixture, model, run, launches, errs,
+            phase = "kernel_times"
+            kernels = phase_times(torch, fixture, maps, launches, errs,
                                   cbam_row)
-            phase = "train_times"
-            phase_train_times(torch, samples, state, cfg, kernels)
+            del maps
+            phase = "conv_bias_fold"
+            phase_conv_bias_fold(torch, samples, state)
             del state
             torch.cuda.empty_cache()
         if want("bn_act_step"):
@@ -5271,7 +4910,7 @@ def main(argv):
             phase = "quant_serving"
             by_path["int8_serving"], s8_row = phase_quant_serving(
                 torch, fixture, model, bf16_preds)
-        del model, run
+        del model
         torch.cuda.empty_cache()
         if want("variants"):
             phase = "variants"
@@ -5304,9 +4943,6 @@ def main(argv):
             phase = "recipe"
             torch.cuda.empty_cache()
             by_path.update(phase_recipe(torch, fixture))
-        if only is not None and "remat_probe" in only:
-            phase = "remat_probe"
-            phase_remat_probe(torch)
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         import traceback
         traceback.print_exc()

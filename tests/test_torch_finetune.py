@@ -338,7 +338,7 @@ def tiny_pool(tmp_path_factory):
 
 def test_one_real_robust_run_on_the_cpu(tiny_pool, tmp_path, monkeypatch):
     """finetune_robust in f32 from the committed snapshot with the port's
-    own train_step (the heads rematerialized): one step, a checkpoint
+    own train_step (the plain step): one step, a checkpoint
     that resumes, an EVAL at batch 2."""
     monkeypatch.setattr(recipe, "EVAL_BATCH", 2)
     lines = []
@@ -357,7 +357,7 @@ def test_one_real_robust_run_on_the_cpu(tiny_pool, tmp_path, monkeypatch):
         fr.trainer.TrainConfig(dtype="float32", device="cpu"),
         recipe.DEFAULT_SNAPSHOT, str(out))
     assert resumed and state.step == SNAPSHOT_STEP + 1
-    assert state.model.remat_blocks == frozenset(recipe.FT_REMAT_BLOCKS)
+    assert state.model.remat_blocks == frozenset()
 
 
 def test_one_real_hard_run_on_the_cpu(tiny_pool, tmp_path, monkeypatch):
@@ -440,8 +440,8 @@ def assert_continues_the_checkpoint(seen, path, lr, step_seed):
     assert seen["lrs"] == [lr]
     assert torch.equal(seen["generator"],
                        torch.Generator().manual_seed(step_seed).get_state())
-    # the plain UNet's parameters load into the remat model by name
-    assert seen["remat"] == frozenset(recipe.FT_REMAT_BLOCKS)
+    # the plain UNet, its parameters loaded by name
+    assert seen["remat"] == frozenset()
     assert sorted(seen["model"]) == sorted(ck["model"])
     for k, v in ck["model"].items():
         assert torch.equal(seen["model"][k], v), k
