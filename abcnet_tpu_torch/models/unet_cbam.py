@@ -22,6 +22,11 @@ without an active profile both are no-ops. In eval mode a site is one op,
 ops/cbam_gate.py:cbam_gate_eval (on a GPU the kernels of
 csrc/cbam_gate.cu, which count `cbam_fused`; on the CPU the modules' op
 sequence); in train mode it runs the modules below under autograd.
+The stem's four 5x5 conv-BN-activation sites (inc1, inc2) in eval mode
+and bf16 are one op each, ops/stem_conv.py:stem_conv_bn_act_eval (on a
+GPU the kernel of csrc/stem_conv.cu, which counts `stem_fused`; on the
+CPU the chain of `conv_bn_act`), each a device span `stem` that counts
+one `stem_sites`; in train mode and in f32 they run `conv_bn_act`.
 Parameter names follow the Flax tree (models/weights.py maps them):
 Dense_i -> dense{i}, CBAM_0 -> cbam, ChannelAttention_0 -> channel,
 SpatialAttention_0 -> spatial, DoubleConvCBAM_0 -> double_conv_cbam.
@@ -36,6 +41,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cbam_gate import cbam_gate_eval
+from ..ops.stem_conv import KERNEL as STEM_KERNEL
+from ..ops.stem_conv import stem_conv_bn_act_eval
 from ..utils import profiling
 from .unet import (BN_EPS, BN_MOMENTUM, PRODUCTION_HEADS, BatchNorm, Down,
                    OutConv, Up, _conv, _Trunk, conv_bn_act)
@@ -96,6 +103,17 @@ class CBAM(nn.Module):
                 ch.dense1.bias, sp.conv0.weight, sp.conv0.bias)
 
 
+def _stem_site(conv: nn.Conv2d, bn: BatchNorm, x: torch.Tensor,
+               act: str) -> torch.Tensor:
+    """An eval-mode 5x5 site of the stem in bf16 as one op: a device span
+    `stem` that counts one `stem_sites`."""
+    with profiling.device_span("stem", x):
+        profiling.count("stem_sites", 1)
+        return stem_conv_bn_act_eval(x, conv.weight, conv.bias,
+                                     bn.running_mean, bn.running_var,
+                                     bn.weight, bn.bias, bn.eps, act)
+
+
 class DoubleConvCBAM(nn.Module):
     """(conv-BN-ReLU, conv-BN, CBAM) + residual shortcut, final ReLU."""
 
@@ -111,8 +129,13 @@ class DoubleConvCBAM(nn.Module):
             self.conv2 = nn.Conv2d(in_features, features, 1)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = conv_bn_act(self.conv0, self.bn0, x, "relu", dtype)
-        y = conv_bn_act(self.conv1, self.bn1, y, "none", dtype)
+        if self.training or dtype != torch.bfloat16 or \
+                self.conv0.kernel_size != (STEM_KERNEL, STEM_KERNEL):
+            y = conv_bn_act(self.conv0, self.bn0, x, "relu", dtype)
+            y = conv_bn_act(self.conv1, self.bn1, y, "none", dtype)
+        else:
+            y = _stem_site(self.conv0, self.bn0, x.to(dtype), "relu")
+            y = _stem_site(self.conv1, self.bn1, y, "none")
         res = _conv(self.conv2, x, dtype) if hasattr(self, "conv2") \
             else x.to(dtype)
         with profiling.device_span("cbam", y):

@@ -57,7 +57,14 @@ this order:
      the stock chain, the byte bound); cbam_serving: a seeded CBAM U-Net
      served through make_infer_pipeline under a profile, 13 cbam_gates
      and 13 cbam_fused a batch, three kernels a site inside the cbam
-     spans and no stock reduction there;
+     spans and no stock reduction there, and 4 stem_sites and 4
+     stem_fused a batch; stem_conv_sites: the CBAM stem's conv kernel
+     against the plain chain (stem_conv_bn_act_eval_plain) and the stock
+     chain (cuDNN's conv, then bn_act_eval) at its four 5x5 sites of a
+     batch of 64 on the fixture's activations through a seeded CBAM U-Net
+     whose stem BatchNorms hold moved statistics, each site's share of
+     differing elements and their size gated, and each site's times (the kernel, the plain chain, the
+     stock chain, the bound);
   7. train_f32: `eval_step` in f32 (TF32 off) on the snapshot weights
      against the JAX losses, per term, relative 1e-3;
   8. train_bf16: the production setting (bf16, batch 64, full width) from
@@ -76,7 +83,8 @@ this order:
      instructions it must run (bn_act with the conv bias, beside the
      chain it replaces, and bn_act_eval at the inc1 shape; line
      bn_act_shapes: each bn_act kernel at every BatchNorm shape of the
-     train step; the CBAM gate's row from cbam_gate_sites);
+     train step; the CBAM gate's row from cbam_gate_sites, the stem
+     conv's from stem_conv_sites);
  10. conv_bias_fold: the train step with the conv bias folded into bn_act
      against the routing before the fold (the conv adds its bias, its
      gradient a separate sum), a trace of each: at least one aten::add_
@@ -415,6 +423,20 @@ CBAM_SITES = (("inc1", 32, 512), ("inc2", 32, 512), ("down1", 32, 256),
               ("dconv2", 128, 128))
 CBAM_GATE_PASSES = 4
 CBAM_DIFF_SHARE, CBAM_REL = 1e-3, 2 ** -3
+# stem_conv (ops/stem_conv.py, csrc/stem_conv.cu): the CBAM U-Net's four 5x5
+# stem sites at 512² (inc1.0, 1 -> 32 channels; inc1.1, inc2.0, inc2.1,
+# 32 -> 32). A site's least time: the larger of its operations over the
+# bf16 peak and its bytes (input read once, output written once, bf16) over
+# the HBM bandwidth (benchmark/metrics/stem_conv_roofline_pct.py; 2.936 ms
+# at batch 64). Tolerance against the plain chain and the stock chain
+# (cuDNN's conv, then bn_act_eval with the conv bias): summation order
+# only, so a conv sum within its f32 order error of a bf16 rounding
+# boundary rounds the other way: at most STEM_DIFF_SHARE of the elements
+# differ, each within one bf16 unit of the conv sum through the BatchNorm's
+# scale plus one of the bias add and one of the output
+# (tests/test_torch_stem_conv_cuda.py).
+BF16_OPS_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
+STEM_DIFF_SHARE = 1e-3
 
 
 def conv_s8_site(key):
@@ -1841,9 +1863,11 @@ def phase_cbam_gate(torch, fixture):
     ours = sum("cbam_gate.cu" in k or "gate_kernel" in k or
                "pool_kernel" in k or "mlp_kernel" in k for k in inside)
     served = (len(counters) == n and
-              all(c.get("cbam_gates") == c.get("cbam_fused") == 13
+              all(c.get("cbam_gates") == c.get("cbam_fused") == 13 and
+                  c.get("stem_sites") == c.get("stem_fused") == 4
                   for c in counters) and
               launches["cbam_gate"] == 13 * n and len(ranges) == 13 * n and
+              launches["stem_conv"] == 4 * n and
               not reductions and ours == 3 * 13 * n)
     emit("cbam_serving", ok=served, batches=n, launches=launches,
          counters=counters, cbam_ranges=len(ranges),
@@ -1851,7 +1875,8 @@ def phase_cbam_gate(torch, fixture):
          gate_kernels_in_ranges=ours, reduce_kernels_in_ranges=reductions,
          gate="13 cbam_gates = 13 cbam_fused a batch, 13 calls of the "
               "kernels a batch (3 kernels each) inside the 13 cbam spans, "
-              "no reduce_kernel there")
+              "no reduce_kernel there; 4 stem_sites = 4 stem_fused and 4 "
+              "stem_conv launches a batch")
     del model, run
     torch.cuda.empty_cache()
     if not ok:
@@ -1863,7 +1888,197 @@ def phase_cbam_gate(torch, fixture):
     return launches, {**row, "launches": launches["cbam_gate"]}
 
 
-def phase_times(torch, fixture, maps, launches, errs, cbam_row):
+def stem_bound_ms(b, c_in, h):
+    ops = 2 * b * h * h * c_in * 32 * 25
+    nbytes = b * h * h * (c_in + 32) * 2
+    return max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def bf16_ulp(torch, v):
+    """One bf16 unit in the last place at |v| (v of any float type)."""
+    m = v.double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def stem_conv_f64(torch, x, conv):
+    """The conv's sum in float64 on x and the conv's bf16 weights."""
+    import torch.nn.functional as F
+
+    w = conv.weight.to(torch.bfloat16).double()
+    return F.conv2d(x.double(), w, None, padding=2)
+
+
+def stem_site_tolerance(torch, s, conv, bn, want):
+    """The elementwise bound of the kernel against the stock chain, from
+    the float64 conv sum s: one bf16 unit of the conv sum (it may round to
+    either side) and one of the bias add, through the BatchNorm's scale,
+    plus one unit of the output."""
+    cb = conv.bias.to(torch.bfloat16).double()[:, None, None]
+    scale = (bn.weight.double() / (bn.running_var.double() + bn.eps)
+             .sqrt())[:, None, None].abs()
+    return scale * (bf16_ulp(torch, s) + bf16_ulp(torch, s.abs() + cb.abs())
+                    ) + bf16_ulp(torch, want)
+
+
+def stem_site_operands(torch, model, images):
+    """[(site, x, conv, bn, act)] of the four stem sites: each site's input
+    as the stock chain leaves it on `images` (B, H, W, 1) through the
+    eval-mode CBAM U-Net `model` (the gates through cbam_gate_eval), bf16
+    channels_last."""
+    from abcnet_tpu_torch.models.unet import _conv
+    from abcnet_tpu_torch.ops.cbam_gate import cbam_gate_eval
+    from abcnet_tpu_torch.ops.stem_conv import stem_conv_bn_act_eval_plain
+
+    bf = torch.bfloat16
+    x = images.permute(0, 3, 1, 2).to(bf)
+    out = []
+    with torch.no_grad():
+        for block in ("inc1", "inc2"):
+            m = getattr(model, block)
+            y = x
+            for i, act in enumerate(("relu", "none")):
+                conv, bn = getattr(m, f"conv{i}"), getattr(m, f"bn{i}")
+                out.append((f"{block}.{i}", y, conv, bn, act))
+                y = stem_conv_bn_act_eval_plain(
+                    y, conv.weight, conv.bias, bn.running_mean,
+                    bn.running_var, bn.weight, bn.bias, bn.eps, act)
+            res = _conv(m.conv2, x, bf) if hasattr(m, "conv2") else x
+            x = cbam_gate_eval(y, res, *m.cbam.weights(), bf)
+    return out
+
+
+def stem_site_args(x, conv, bn, act):
+    return (x, conv.weight, conv.bias, bn.running_mean, bn.running_var,
+            bn.weight, bn.bias, bn.eps, act)
+
+
+def stem_stock_chain(torch, x, conv, bn, act):
+    """The chain the port ran at a stem site before the kernel: cuDNN's
+    conv without its bias, then bn_act_eval (kernel (e)) adding it."""
+    import torch.nn.functional as F
+
+    from abcnet_tpu_torch.ops.bn_act import bn_act_eval
+
+    bf = torch.bfloat16
+    return bn_act_eval(F.conv2d(x, conv.weight.to(bf), None, padding=2),
+                       conv.bias.to(bf), bn.running_mean, bn.running_var,
+                       bn.weight, bn.bias, bn.eps, act, bf)
+
+
+def stem_moved_statistics(torch, model, seed=0):
+    """Draw the running statistics and affine parameters of the CBAM
+    U-Net's four stem BatchNorms from a seeded generator on their device,
+    as a trained model holds them: a default-initialized BatchNorm (mean
+    0, variance 1, weight 1, bias 0) leaves a bf16 input as it is, so a
+    kernel that dropped or mixed up its epilogue's operands would pass."""
+    gen = torch.Generator(device=model.inc1.bn0.running_mean.device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for block in ("inc1", "inc2"):
+            for i in (0, 1):
+                bn = getattr(getattr(model, block), f"bn{i}")
+                bn.running_mean.normal_(0.0, 0.3, generator=gen)
+                bn.running_var.uniform_(0.5, 2.0, generator=gen)
+                bn.weight.normal_(1.0, 0.2, generator=gen)
+                bn.bias.normal_(0.0, 0.1, generator=gen)
+
+
+def stem_site_check(torch, got, want, s, conv, bn):
+    """(share of the elements of `got` that differ from `want`, whether
+    each lies within stem_site_tolerance, the largest difference)."""
+    tol = stem_site_tolerance(torch, s, conv, bn, want)
+    d = (got.double() - want.double()).abs()
+    out = ((d > 0).double().mean().item(), bool((d <= tol).all()),
+           d.max().item())
+    del tol, d
+    return out
+
+
+def phase_stem_conv(torch, fixture):
+    """The stem's kernel at its four sites of a batch of 64 on the
+    fixture's activations (a seeded CBAM U-Net, bf16, eval, its stem
+    BatchNorms with moved statistics) against the plain chain and the
+    stock chain on the same operands, each site's times beside its bound
+    (line `stem_conv_sites`). Returns the kernels-line row."""
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.models import UNetCBAM
+    from abcnet_tpu_torch.ops.stem_conv import (stem_conv_bn_act_eval,
+                                                stem_conv_bn_act_eval_plain)
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = UNetCBAM(dtype=torch.bfloat16)
+    model = model.cuda().eval()
+    stem_moved_statistics(torch, model)
+    bits = torch.from_numpy(pack_images(fixture["images"])).cuda()
+    images = unpack_bits(bits, torch.bfloat16)[..., None]
+    sites, ok, worst = {}, True, 0.0
+    for name, x, conv, bn, act in stem_site_operands(torch, model, images):
+        args = stem_site_args(x, conv, bn, act)
+        with torch.no_grad():
+            got = stem_conv_bn_act_eval(*args)
+            s = stem_conv_f64(torch, x, conv)
+            plain = stem_conv_bn_act_eval_plain(*args)
+            share, within, err = stem_site_check(torch, got, plain, s, conv,
+                                                 bn)
+            del plain
+            stock = stem_stock_chain(torch, x, conv, bn, act)
+            stock_share, stock_within, stock_err = stem_site_check(
+                torch, got, stock, s, conv, bn)
+            del stock, s
+            worst = max(worst, err, stock_err)
+            c_in = x.shape[1]
+            sites[name] = {
+                "c_in": c_in, "act": act,
+                "ms": device_ms(torch, lambda: stem_conv_bn_act_eval(*args)),
+                "plain_ms": device_ms(
+                    torch, lambda: stem_conv_bn_act_eval_plain(*args), 5),
+                "library_ms": device_ms(
+                    torch, lambda: stem_stock_chain(torch, x, conv, bn, act)),
+                "bound_ms": stem_bound_ms(x.shape[0], c_in, x.shape[2]),
+                "differing_share": share, "within_tolerance": within,
+                "stock_differing_share": stock_share,
+                "stock_within_tolerance": stock_within}
+        ok = (ok and share <= STEM_DIFF_SHARE and within and
+              stock_share <= STEM_DIFF_SHARE and stock_within)
+        del got
+        torch.cuda.empty_cache()
+
+    def total(key):
+        return sum(v[key] for v in sites.values())
+
+    row = {
+        "name": "stem_conv", "route": "cuda",
+        "source": "abcnet_tpu_torch/csrc/stem_conv.cu",
+        "replaces": "abcnet_tpu/models/unet_cbam.py (XLA's 5x5 convs of the "
+                    "stem and the fusion of bias, BatchNorm and activation "
+                    "after them; no Pallas counterpart)",
+        "launches": None, "max_abs_err": worst,
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"), "bound_by": "bf16 operations",
+        "roofline_pct": 100 * total("bound_ms") / total("ms"),
+        "library_ms": total("library_ms"), "operations_type": "bf16",
+        "shape": f"the four stem sites of a batch of {BATCH} at 512² (1 -> "
+                 "32 and three 32 -> 32), bf16 channels_last, on the "
+                 "fixture's activations",
+        "library": "the stock chain it replaced: cuDNN's conv, then "
+                   "bn_act_eval with the conv bias"}
+    emit("stem_conv_sites", ok=ok, batch=BATCH, row=row, sites=sites,
+         gate=f"each site, its BatchNorm's statistics moved: at most "
+              f"{STEM_DIFF_SHARE} of the elements differ from the plain "
+              "chain, and from the stock chain, each within one bf16 unit "
+              "of the conv sum and of the bias add through the BatchNorm's "
+              "scale plus one of the output")
+    del model, images, bits
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("stem_conv differs from the plain or the "
+                             "stock chain past its tolerance")
+    return row
+
+
+def phase_times(torch, fixture, maps, launches, errs, cbam_row, stem_row):
     """Line kernel_times: each kernel alone at the shapes of a batch of 64
     against its plain version and its bound (device_ms; the NMS kernel on
     the fixture's real heatmaps `maps`), and line bn_act_shapes. Returns
@@ -1929,6 +2144,7 @@ def phase_times(torch, fixture, maps, launches, errs, cbam_row):
     bn_act_step_shapes(torch)
     kernels.append(bn_act_eval_row(torch, launches, errs))
     kernels.append(cbam_row)
+    kernels.append(stem_row)
 
     # Beside the NMS row: maps with far more than K survivors in every band
     # (random logits, what an untrained model gives): the sorting route.
@@ -2327,9 +2543,10 @@ def reset_launches():
     from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
+    from abcnet_tpu_torch.ops.stem_conv import stem_conv_bn_act_eval
     from abcnet_tpu_torch.ops.unpack import unpack_bits
     for fn in (unpack_bits, unpack_noise, nms_topk, conv3x3_s8,
-               cbam_gate_eval):
+               cbam_gate_eval, stem_conv_bn_act_eval):
         fn.launches = 0
     bn_act.reset_launches()
 
@@ -2339,19 +2556,22 @@ def read_launches():
     points (statistics, apply, backward sums, backward apply) together,
     bn_act_eval's those of the eval kernel, conv_s8's those of the int8
     conv kernel, cbam_gate's the calls of the CBAM gate's kernels (three
-    kernels a call, one call a site)."""
+    kernels a call, one call a site), stem_conv's those of the CBAM
+    stem's conv kernel (one a site)."""
     from abcnet_tpu_torch.ops import bn_act
     from abcnet_tpu_torch.ops.cbam_gate import cbam_gate_eval
     from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
+    from abcnet_tpu_torch.ops.stem_conv import stem_conv_bn_act_eval
     from abcnet_tpu_torch.ops.unpack import unpack_bits
     return {"unpack_bits": unpack_bits.launches,
             "unpack_noise": unpack_noise.launches,
             "nms_topk": nms_topk.launches, "bn_act": bn_act.launches(),
             "bn_act_eval": bn_act.eval_apply.launches,
             "conv_s8": conv3x3_s8.launches,
-            "cbam_gate": cbam_gate_eval.launches}
+            "cbam_gate": cbam_gate_eval.launches,
+            "stem_conv": stem_conv_bn_act_eval.launches}
 
 
 def serving_launches(batches, eval_batches=0, model="sparse"):
@@ -2361,7 +2581,8 @@ def serving_launches(batches, eval_batches=0, model="sparse"):
     return {"unpack_bits": batches + eval_batches, "unpack_noise": 0,
             "nms_topk": batches, "bn_act": 0,
             "bn_act_eval": EVAL_BN[model] * batches
-            + EVAL_BN["dense"] * eval_batches, "conv_s8": 0, "cbam_gate": 0}
+            + EVAL_BN["dense"] * eval_batches, "conv_s8": 0, "cbam_gate": 0,
+            "stem_conv": 0}
 
 
 def train_bn_launches(model, steps):
@@ -3010,7 +3231,8 @@ def phase_variants(torch, fixture, samples):
         ok = ok and fell and \
             launches[f"{name}_train"]["unpack_noise"] == VARIANT_STEPS and \
             launches[f"{name}_train"]["bn_act_eval"] == 0 and \
-            launches[f"{name}_train"]["cbam_gate"] == 0
+            launches[f"{name}_train"]["cbam_gate"] == 0 and \
+            launches[f"{name}_train"]["stem_conv"] == 0
         if name == "s2d":
             reset_launches()
             preds = img2smiles_loop(make_infer_pipeline(model.eval(), "cuda"),
@@ -3082,7 +3304,8 @@ def phase_variants(torch, fixture, samples):
     emit("variants", ok=ok, batch=BATCH, dtype="bfloat16", size=512,
          steps=VARIANT_STEPS, rows=rows,
          gate=f"S2D and CBAM finite with the loss falling, one noise launch "
-              f"a step, no bn_act_eval and no cbam_gate; S2D serves with "
+              f"a step, no bn_act_eval, cbam_gate or stem_conv; S2D serves "
+              f"with "
               f"one unpack and one "
               f"NMS launch and {EVAL_BN['s2d_sparse']} bn_act_eval; the fused "
               f"bank's eval forward through the kernel bit-equal to "
@@ -4878,6 +5101,11 @@ def main(argv):
             phase = "cbam_gate"
             by_path["cbam_serving"], cbam_row = phase_cbam_gate(torch,
                                                                 fixture)
+        if want("stem_conv"):
+            phase = "stem_conv"
+            stem_row = phase_stem_conv(torch, fixture)
+            stem_row["launches"] = by_path.get("cbam_serving",
+                                               {}).get("stem_conv")
         if only is None:
             phase = "train_f32"
             phase_train_f32(torch, samples, labels)
@@ -4889,7 +5117,7 @@ def main(argv):
             by_path["fit_bf16"] = dict(train_launches)
             phase = "kernel_times"
             kernels = phase_times(torch, fixture, maps, launches, errs,
-                                  cbam_row)
+                                  cbam_row, stem_row)
             del maps
             phase = "conv_bias_fold"
             phase_conv_bias_fold(torch, samples, state)

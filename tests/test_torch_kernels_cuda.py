@@ -742,6 +742,9 @@ def _variant(name, dtype):
 # heatmap heads, the serving trunk)
 EVAL_BN_LAUNCHES = {"unet": (34, 28), "fused_bank": (27, None),
                     "s2d": (28, 22), "cbam": (34, None)}
+# BatchNorms a bf16 forward applies inside another kernel instead: the
+# CBAM U-Net's four 5x5 stem sites (ops/stem_conv.py)
+FUSED_BN_BF16 = {"cbam": 4}
 
 
 @pytest.mark.parametrize("name", sorted(EVAL_BN_LAUNCHES))
@@ -764,6 +767,8 @@ def test_eval_forward_through_the_kernel_is_the_chain(cuda, name, dtype,
     images = (torch.rand(2, 128, 128, 1, device=cuda, generator=gen)
               < 0.1).to(dtype)
     dense_n, sparse_n = EVAL_BN_LAUNCHES[name]
+    if dtype == torch.bfloat16:
+        dense_n -= FUSED_BN_BF16.get(name, 0)
 
     def forwards():
         with torch.no_grad():
