@@ -291,12 +291,19 @@ _BOND_HEAD_WIDTHS = (60, 360, 60)
 
 def fuse_head_params(model, names: Sequence[str], widths: Sequence[int],
                      dtype: torch.dtype = torch.float32) -> Dict:
-    """Concatenate several OutConv heads of `model` into ONE evaluation:
-    stage-1 3x3 kernels stacked along the output-feature axis as one
-    (9*C, D) matrix (rows ordered row offset, col offset, channel), BN
-    vectors concatenated (f32), stage-2 1x1 kernels block-diagonal. The
-    conv weights are cast to `dtype` once, here."""
+    """Concatenate several heads of `model` into ONE evaluation: stage-1
+    3x3 kernels stacked along the output-feature axis as one (9*C, D)
+    matrix (rows ordered row offset, col offset, channel), stage-2 1x1
+    kernels block-diagonal. The conv weights are cast to `dtype` once,
+    here. A head is an OutConv (3x3 conv, BatchNorm, LeakyReLU 0.01, 1x1
+    conv: the BN vectors concatenated, f32) or a head without BatchNorm
+    (3x3 conv, ReLU, 1x1 conv, CenterNet's: no BN entries); the heads of
+    one bundle are of one kind. C is the model's feature width."""
     heads = [model.head(n) for n in names]
+    with_bn = {hasattr(h, "bn0") for h in heads}
+    if len(with_bn) != 1:
+        raise ValueError(f"heads {tuple(names)} mix heads with and without "
+                         "a BatchNorm: one bundle takes one kind")
 
     def cat(get):
         return torch.cat([get(h).detach().float() for h in heads])
@@ -305,23 +312,30 @@ def fuse_head_params(model, names: Sequence[str], widths: Sequence[int],
                     for h in heads], dim=-1)            # (3, 3, C, D)
     k1 = torch.block_diag(*[h.conv1.weight.detach()[:, :, 0, 0].t()
                             for h in heads])            # (D, W)
-    return {
+    fz = {
         "k0": k0.reshape(-1, k0.shape[-1]).to(dtype),
         "b0": cat(lambda h: h.conv0.bias).to(dtype),
-        "scale": cat(lambda h: h.bn0.weight),
-        "bias": cat(lambda h: h.bn0.bias),
-        "mean": cat(lambda h: h.bn0.running_mean),
-        "var": cat(lambda h: h.bn0.running_var),
+    }
+    if with_bn.pop():
+        fz.update({
+            "scale": cat(lambda h: h.bn0.weight),
+            "bias": cat(lambda h: h.bn0.bias),
+            "mean": cat(lambda h: h.bn0.running_mean),
+            "var": cat(lambda h: h.bn0.running_var),
+        })
+    fz.update({
         "k1": k1.to(dtype),
         "b1": cat(lambda h: h.conv1.bias).to(dtype),
         "widths": tuple(widths),
-    }
+    })
+    return fz
 
 
 def apply_heads_fused(fz: Dict, windows: torch.Tensor,
                       dtype: torch.dtype = torch.float32):
     """Evaluate a fused head bundle at gathered 3x3 windows (B, K, 3, 3, C).
-    Conv in `dtype`, BN in f32, LeakyReLU 0.01, 1x1 conv in `dtype`.
+    Conv in `dtype`; where the bundle has BN entries (OutConv heads) BN
+    in f32 and LeakyReLU 0.01, else ReLU in f32; 1x1 conv in `dtype`.
     Returns one (B, K, width) f32 logit array per head, in bundle order.
 
     The window contraction is one (B*K, 9C) x (9C, D) matmul, as the
@@ -329,9 +343,12 @@ def apply_heads_fused(fz: Dict, windows: torch.Tensor,
     b, k = windows.shape[:2]
     x = windows.to(dtype).reshape(b * k, -1) @ fz["k0"].to(dtype)
     x = (x + fz["b0"].to(dtype)).float()
-    x = (x - fz["mean"]) * torch.rsqrt(fz["var"] + 1e-5)
-    x = x * fz["scale"] + fz["bias"]
-    x = F.leaky_relu(x, 0.01).to(dtype)
+    if "mean" in fz:
+        x = (x - fz["mean"]) * torch.rsqrt(fz["var"] + 1e-5)
+        x = x * fz["scale"] + fz["bias"]
+        x = F.leaky_relu(x, 0.01).to(dtype)
+    else:
+        x = F.relu(x).to(dtype)
     out = (x @ fz["k1"].to(dtype) + fz["b1"].to(dtype)).float()
     return list(out.reshape(b, k, -1).split(fz["widths"], dim=-1))
 
@@ -355,8 +372,9 @@ def extract_peaks_sparse(heatmaps: Dict[str, torch.Tensor],
                          dtype: torch.dtype = torch.float32
                          ) -> Dict[str, torch.Tensor]:
     """Sparse-head path. `heatmaps` holds the two dense 1-channel heads
-    (atom_target, bond_target); `feats` is the shared NHWC (B, G, G, 128)
-    trunk output (UNet.forward with dense_heads=DENSE_HEADS_SPARSE_MODE,
+    (atom_target, bond_target); `feats` is the shared NHWC (B, G, G, C)
+    trunk output, C the model's feature width (128 for the U-Nets, 64 for
+    DLASeg) (UNet.forward with dense_heads=DENSE_HEADS_SPARSE_MODE,
     return_features=True); `heads` is sparse_heads(model, dtype).
 
     Same decode as `extract_peaks` up to float reassociation, except the

@@ -8,7 +8,9 @@ plus `__step__`.
 
 Every layout of the JAX package's models maps: the production UNet, its
 fused head bank (`head_bank`, `head_bank_bn`, `out1_<head>`), the
-space-to-depth UNetS2D (`stem1`, `stem2`) and UNetCBAM. Name mapping:
+space-to-depth UNetS2D (`stem1`, `stem2`), UNetCBAM, and the port's own
+DLA-34 + DCN (models/dla_dcn.py, `dla_up`), which has no JAX module: its
+snapshot keeps the same key rules. Name mapping:
 Conv_i -> conv{i}, BatchNorm_i -> bn{i}, Dense_i -> dense{i},
 DoubleConv_0 -> double_conv, DoubleConvCBAM_0 -> double_conv_cbam,
 ConvTranspose_0 -> up, CBAM_0 -> cbam, ChannelAttention_0 -> channel,
@@ -152,8 +154,9 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
 def model_for_tree(params: Dict, dtype: torch.dtype = torch.float32
                    ) -> torch.nn.Module:
     """A fresh port model whose layout is that of the Flax `params` tree:
-    UNetCBAM (CBAM blocks), UNetS2D (a `stem1`), UNet with a fused head
-    bank (`head_bank`) or the production UNet."""
+    DLASeg (a `dla_up`), UNetCBAM (CBAM blocks), UNetS2D (a `stem1`), UNet
+    with a fused head bank (`head_bank`) or the production UNet."""
+    from .dla_dcn import DLASeg
     from .unet_cbam import UNetCBAM
     from .unet_s2d import UNetS2D
 
@@ -166,6 +169,8 @@ def model_for_tree(params: Dict, dtype: torch.dtype = torch.float32
     names = (HEAD_NAMES if set(width) == set(HEAD_NAMES) else
              [f"head{i}" for i in range(len(width))])
     heads = tuple(width[n] for n in names)
+    if "dla_up" in params:
+        return DLASeg(heads, dtype)
     if "CBAM_0" in params.get("inc1", {}):
         return UNetCBAM(heads, dtype)
     if "stem1" in params:

@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 KERNELS = ("unpack", "noise", "nms_topk", "bn_act", "conv_s8", "cbam_gate",
-           "stem_conv")
+           "stem_conv", "deform_conv")
 NATIVE = "native"
 
 

@@ -34,7 +34,9 @@ thread unless named):
 
 and inside `enqueue`, for the CBAM U-Net (models/unet_cbam.py), one
 `cbam` span around each of its 13 gate sites (channel gate, spatial
-gate, residual add, ReLU).
+gate, residual add, ReLU), and for the DLA-34 + DCN model
+(models/dla_dcn.py) one `dcn` span around each of its 16 deformable
+sites (offset / mask conv, sampling, contraction, BatchNorm, ReLU).
 
 Its counters: `images` (rows assembled), `atoms` and `bonds` (valid
 peaks handed to assembly), `smiles_none` (rows with no SMILES), on the
@@ -43,7 +45,9 @@ native time of graph assembly and of SMILES writing), on the loop's
 thread `assembly_ready` (1 where the worker was done with the batch when
 the loop asked for it), and for the CBAM U-Net `cbam_gates` (gate sites
 run), `cbam_fused` (those that ran the gate's kernels,
-ops/cbam_gate.py) and `cbam_device_us` (their device time).
+ops/cbam_gate.py) and `cbam_device_us` (their device time), and for
+the DLA-34 + DCN model `dcn_sites` (deformable sites run) and
+`dcn_device_us` (their device time).
 
 A device span (`device_span`) is a span that also times the device work
 it enqueues: two CUDA events on the current stream, recorded only while

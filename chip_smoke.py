@@ -65,6 +65,14 @@ this order:
      whose stem BatchNorms hold moved statistics, each site's share of
      differing elements and their size gated, and each site's times (the kernel, the plain chain, the
      stock chain, the bound);
+     dcn_sites: the DLA-34 + DCN model's deformable columns kernel
+     against the plain op at its 16 sites of a batch of 64, on the
+     fixture's activations through a seeded model (its BatchNorms
+     recalibrated by the plain reference, offsets of about a pixel), the
+     columns and the site's output each gated, and each site's times (the
+     op, the plain op, the bound from benchmark/counts_dla.py);
+     dcn_serving: that model served through make_infer_pipeline under a
+     profile, 16 dcn_sites and 16 kernel launches a batch;
   7. train_f32: `eval_step` in f32 (TF32 off) on the snapshot weights
      against the JAX losses, per term, relative 1e-3;
   8. train_bf16: the production setting (bf16, batch 64, full width) from
@@ -437,6 +445,16 @@ CBAM_DIFF_SHARE, CBAM_REL = 1e-3, 2 ** -3
 # (tests/test_torch_stem_conv_cuda.py).
 BF16_OPS_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 STEM_DIFF_SHARE = 1e-3
+# deform_conv (ops/deform_conv.py, csrc/deform_conv.cu): the DLA-34 + DCN
+# model's 16 deformable sites. The columns kernel rounds each f32 operation
+# alone, in the plain op's order, so its columns equal the plain op's bit
+# for bit; DCN_DIFF_SHARE leaves room for a libm exp that differs from
+# ATen's sigmoid in its last bit (one bf16 unit at most, DCN_ULPS). The
+# site's output is the same GEMM and bn_act_eval on those columns. A site's
+# least time: benchmark/counts_dla.py (operations of the offset conv and
+# the contraction over the bf16 peak, or its input and output bytes over
+# the HBM bandwidth, the larger).
+DCN_DIFF_SHARE, DCN_ULPS = 1e-6, 1
 
 
 def conv_s8_site(key):
@@ -2056,7 +2074,13 @@ def phase_stem_conv(torch, fixture):
                     "after them; no Pallas counterpart)",
         "launches": None, "max_abs_err": worst,
         "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"), "bound_by": "bf16 operations",
+        "columns_ms": total("columns_ms"),
+        "columns_ms_cell_offsets": total("columns_ms_cell_offsets"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": ", ".join(
+            f"{by} at {sum(v['bound_by'] == by for v in sites.values())} "
+            "sites" for by in sorted({v["bound_by"]
+                                      for v in sites.values()})),
         "roofline_pct": 100 * total("bound_ms") / total("ms"),
         "library_ms": total("library_ms"), "operations_type": "bf16",
         "shape": f"the four stem sites of a batch of {BATCH} at 512² (1 -> "
@@ -2171,6 +2195,228 @@ def phase_times(torch, fixture, maps, launches, errs, cbam_row, stem_row):
          **(noise_extra if k["name"] == "unpack_noise" else {})}
         for k in kernels])
     return kernels
+
+
+def bf16_units(torch, got, want):
+    """(share of elements that differ, most bf16 units between them) of
+    two bf16 tensors of one shape (their bit patterns as ordered
+    integers)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+    d = (ordered(got) - ordered(want)).abs()
+    return (d > 0).double().mean().item(), int(d.max().item())
+
+
+def dcn_seeded_model(torch, images_u8, offset_scale=1.0):
+    """DLASeg in bf16 on the card, on the benchmark's seeded kernels
+    (benchmark/dla_weights.py:drawn) with its offset convs at
+    `offset_scale` of He-normal (1: offsets of about a pixel), every
+    BatchNorm recalibrated to the plain reference's float32 batch
+    statistics over `images_u8` (the reference's `calibrate`)."""
+    import tempfile
+
+    import numpy as np
+
+    from abcnet_tpu_torch.models.weights import load_weights
+    from benchmark import dla_weights, harness
+    from benchmark.reference import decode as ref_decode
+    from benchmark.reference import dla_dcn as ref_dla
+
+    cfg = harness.load_json(os.path.join(
+        HERE, "benchmark", "configs", "dla34_dcn_bf16.json"))
+    w = {k: torch.from_numpy(v).cuda() for k, v in dla_weights.drawn(
+        dict(cfg, offset_kernel_scale=offset_scale)).items()}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        ref_dla.forward(w, ref_decode.binarize(images_u8, "cuda"),
+                        calibrate=True)
+    arrays = dla_weights.with_default_stats(
+        {k: v.cpu().numpy() for k, v in w.items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dla.npz")
+        np.savez(path, __step__=np.int64(0), **arrays)
+        model, _ = load_weights(path, device="cuda", dtype=torch.bfloat16)
+    return model
+
+
+def dcn_site_operands(torch, model, images):
+    """[(site name, DeformConv, its bf16 input)] of the 16 deformable
+    sites over one eval forward of `images` (B, H, W, 1)."""
+    from abcnet_tpu_torch.models.dla_dcn import DeformConv
+
+    got, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, DeformConv):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, name=name: got.append(
+                    (name, mod, inp[0].to(torch.bfloat16)))))
+    try:
+        with torch.no_grad():
+            model(images, dense_heads=("atom_target",))
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def dcn_site_args(torch, mod, x):
+    """The arguments of deform_conv_bn_act_eval at a site: x, the offset
+    / mask conv's bf16 output, the DCN's weight and bias, the BatchNorm's
+    terms, relu."""
+    from abcnet_tpu_torch.models.dla_dcn import _conv
+
+    bn = mod.bn0
+    with torch.no_grad():
+        om = _conv(mod.conv1, x, torch.bfloat16)
+    return (x, om, mod.conv0.weight, mod.conv0.bias, bn.running_mean,
+            bn.running_var, bn.weight, bn.bias, bn.eps, "relu")
+
+
+def dcn_bound_ms(b, h, ci, co):
+    """Least time of what deform_conv_bn_act_eval does at a site over a
+    batch: the larger of the contraction's operations over the bf16 peak
+    (the offset / mask conv's output is its argument, so that conv's are
+    not counted) and the site's bytes over HBM: (ms, what bounds it)."""
+    from benchmark import counts_dla
+    from benchmark.counts import BF16_OPS_PER_S as OPS, HBM_BYTES_PER_S
+
+    t_ops = b * counts_dla.ops(h, ci, co, 3) / OPS
+    t_bytes = counts_dla.site_bytes(b, h, ci, co) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "bf16 operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_dcn(torch, fixture):
+    """The deformable columns kernel at the 16 sites of a batch of 64 on
+    the fixture's activations through a seeded DLA-34 + DCN (bf16, its
+    BatchNorms recalibrated, offsets of about a pixel) against the plain
+    op, and each site's times beside its bound, with the columns kernel
+    timed at these offsets and at the cell's (`offset_kernel_scale` of
+    them: the same offset kernels scaled, on the same activations) (line
+    `dcn_sites`); then the
+    model served through make_infer_pipeline under a profile: 16
+    `dcn_sites` and 16 kernel launches a batch, and `dcn_device_us`
+    (line `dcn_serving`). Returns the kernels-line row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from abcnet_tpu_torch.__main__ import img2smiles_loop
+    from abcnet_tpu_torch.data.pipeline import pack_images
+    from abcnet_tpu_torch.infer.decode import make_infer_pipeline
+    from abcnet_tpu_torch.ops.deform_conv import (
+        deform_conv_bn_act_eval, deform_conv_bn_act_eval_plain,
+        modulated_columns, modulated_columns_plain)
+    from abcnet_tpu_torch.ops.unpack import unpack_bits
+    from abcnet_tpu_torch.utils import profiling
+
+    from benchmark import harness
+
+    cell_scale = harness.load_json(os.path.join(
+        HERE, "benchmark", "configs", "dla34_dcn_bf16.json"))[
+            "offset_kernel_scale"]
+    model = dcn_seeded_model(torch, fixture["images"])
+    bits = torch.from_numpy(pack_images(fixture["images"])).cuda()
+    images = unpack_bits(bits, torch.bfloat16)[..., None]
+    sites, ok, worst = {}, True, 0
+    for name, mod, x in dcn_site_operands(torch, model, images):
+        args = dcn_site_args(torch, mod, x)
+        with torch.no_grad():
+            col_share, col_units = bf16_units(
+                torch, modulated_columns(x, args[1]),
+                modulated_columns_plain(x, args[1]))
+            out_share, out_units = bf16_units(
+                torch, deform_conv_bn_act_eval(*args),
+                deform_conv_bn_act_eval_plain(*args))
+            off = args[1][:, :18].float().abs()
+            om_cell = torch.nn.functional.conv2d(
+                x, (mod.conv1.weight * cell_scale).to(torch.bfloat16),
+                mod.conv1.bias.to(torch.bfloat16),
+                padding=mod.conv1.padding)
+            off_cell = om_cell[:, :18].float().abs()
+            b, ci, h, _ = x.shape
+            co = args[2].shape[0]
+            bound_ms, bound_by = dcn_bound_ms(b, h, ci, co)
+            sites[name] = {
+                "h": h, "c_in": ci, "c_out": co,
+                "ms": device_ms(torch, lambda: deform_conv_bn_act_eval(
+                    *args)),
+                "plain_ms": device_ms(
+                    torch, lambda: deform_conv_bn_act_eval_plain(*args), 5),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "columns_ms": device_ms(
+                    torch, lambda: modulated_columns(x, args[1])),
+                "columns_ms_cell_offsets": device_ms(
+                    torch, lambda: modulated_columns(x, om_cell)),
+                "abs_offset_px_median_cell": off_cell.median().item(),
+                "abs_offset_px_max_cell": off_cell.max().item(),
+                "columns_differing_share": col_share,
+                "columns_max_units": col_units,
+                "out_differing_share": out_share,
+                "out_max_units": out_units,
+                "abs_offset_px_median": off.median().item(),
+                "abs_offset_px_max": off.max().item()}
+        worst = max(worst, col_units, out_units)
+        ok = (ok and col_share <= DCN_DIFF_SHARE and col_units <= DCN_ULPS
+              and out_share <= DCN_DIFF_SHARE and out_units <= DCN_ULPS)
+        torch.cuda.empty_cache()
+
+    def total(key):
+        return sum(v[key] for v in sites.values())
+
+    row = {
+        "name": "deform_conv", "route": "cuda",
+        "source": "abcnet_tpu_torch/csrc/deform_conv.cu",
+        "replaces": "none: the JAX package has no deformable conv (the "
+                    "DLA-34 + DCN model is the port's own)",
+        "launches": None, "max_abs_err": worst,
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "columns_ms": total("columns_ms"),
+        "columns_ms_cell_offsets": total("columns_ms_cell_offsets"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": ", ".join(
+            f"{by} at {sum(v['bound_by'] == by for v in sites.values())} "
+            "sites" for by in sorted({v["bound_by"]
+                                      for v in sites.values()})),
+        "roofline_pct": 100 * total("bound_ms") / total("ms"),
+        "operations_type": "bf16",
+        "shape": f"the 16 deformable sites of a batch of {BATCH} (16² to "
+                 "128², 64 to 512 channels), bf16 channels_last, on the "
+                 "fixture's activations: columns kernel, GEMM, bn_act_eval"}
+    emit("dcn_sites", ok=ok, batch=BATCH, row=row, sites=sites,
+         gate=f"each site: at most {DCN_DIFF_SHARE} of the columns and of "
+              f"the outputs differ from the plain op, by at most "
+              f"{DCN_ULPS} bf16 unit")
+
+    run = make_infer_pipeline(model, "cuda")
+    pool = list(fixture["images"]) * 2
+    img2smiles_loop(run, pool[:BATCH], BATCH, log_every=0)         # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        img2smiles_loop(run, pool, BATCH, log_every=0)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    counters = list(profiling.counters().values())
+    profiling.clear()
+    n = len(pool) // BATCH
+    served = (len(counters) == n and
+              all(c.get("dcn_sites") == 16 and c.get("dcn_device_us", 0) > 0
+                  for c in counters) and
+              launches["deform_conv"] == 16 * n)
+    emit("dcn_serving", ok=served, batches=n, launches=launches,
+         counters=counters,
+         gate="16 dcn_sites and 16 deform_conv launches a batch, the "
+              "sites' device time in dcn_device_us")
+    del model, run, images, bits
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("deform_conv differs from the plain op past "
+                             "its tolerance")
+    if not served:
+        raise AssertionError("the DLA serving path did not run the "
+                             "deformable kernel at every site")
+    return {**row, "launches": launches["deform_conv"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2541,12 +2787,13 @@ def reset_launches():
     from abcnet_tpu_torch.ops import bn_act
     from abcnet_tpu_torch.ops.cbam_gate import cbam_gate_eval
     from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
+    from abcnet_tpu_torch.ops.deform_conv import modulated_columns
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.stem_conv import stem_conv_bn_act_eval
     from abcnet_tpu_torch.ops.unpack import unpack_bits
     for fn in (unpack_bits, unpack_noise, nms_topk, conv3x3_s8,
-               cbam_gate_eval, stem_conv_bn_act_eval):
+               cbam_gate_eval, stem_conv_bn_act_eval, modulated_columns):
         fn.launches = 0
     bn_act.reset_launches()
 
@@ -2557,10 +2804,12 @@ def read_launches():
     bn_act_eval's those of the eval kernel, conv_s8's those of the int8
     conv kernel, cbam_gate's the calls of the CBAM gate's kernels (three
     kernels a call, one call a site), stem_conv's those of the CBAM
-    stem's conv kernel (one a site)."""
+    stem's conv kernel (one a site), deform_conv's those of the DLA
+    model's deformable columns kernel (one a site)."""
     from abcnet_tpu_torch.ops import bn_act
     from abcnet_tpu_torch.ops.cbam_gate import cbam_gate_eval
     from abcnet_tpu_torch.ops.conv_s8 import conv3x3_s8
+    from abcnet_tpu_torch.ops.deform_conv import modulated_columns
     from abcnet_tpu_torch.ops.noise import unpack_noise
     from abcnet_tpu_torch.ops.peaks import nms_topk
     from abcnet_tpu_torch.ops.stem_conv import stem_conv_bn_act_eval
@@ -2571,7 +2820,8 @@ def read_launches():
             "bn_act_eval": bn_act.eval_apply.launches,
             "conv_s8": conv3x3_s8.launches,
             "cbam_gate": cbam_gate_eval.launches,
-            "stem_conv": stem_conv_bn_act_eval.launches}
+            "stem_conv": stem_conv_bn_act_eval.launches,
+            "deform_conv": modulated_columns.launches}
 
 
 def serving_launches(batches, eval_batches=0, model="sparse"):
@@ -2582,7 +2832,7 @@ def serving_launches(batches, eval_batches=0, model="sparse"):
             "nms_topk": batches, "bn_act": 0,
             "bn_act_eval": EVAL_BN[model] * batches
             + EVAL_BN["dense"] * eval_batches, "conv_s8": 0, "cbam_gate": 0,
-            "stem_conv": 0}
+            "stem_conv": 0, "deform_conv": 0}
 
 
 def train_bn_launches(model, steps):
@@ -5106,6 +5356,9 @@ def main(argv):
             stem_row = phase_stem_conv(torch, fixture)
             stem_row["launches"] = by_path.get("cbam_serving",
                                                {}).get("stem_conv")
+        if want("dcn"):
+            phase = "dcn"
+            dcn_row = phase_dcn(torch, fixture)
         if only is None:
             phase = "train_f32"
             phase_train_f32(torch, samples, labels)
@@ -5182,6 +5435,7 @@ def main(argv):
               file=sys.stderr)
         return 4
     kernels.append({**s8_row, "max_abs_err": errs["conv_s8"]})
+    kernels.append(dcn_row)
     for k in kernels:
         k["launches_by_path"] = {path: n.get(k["name"], 0)
                                  for path, n in by_path.items()}
